@@ -44,20 +44,117 @@ def make_fm_statics(num: int, den: int, level_int: int, kd: float,
         nseg=nseg, eps=eps)
 
 
+def fma32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """f32 fused multiply-add a*b + c (b a tensor or an f32 value as a
+    Python float), for the steps XLA's CPU compiler contracts.  The
+    product of two f32 values is exact in f64, so the f64 sum (fused or
+    not) is rounded once and then to f32.  That double rounding differs
+    from one true rounding only when the f64 sum lands exactly on an f32
+    rounding midpoint, about 2^-29 of inputs.  The CPU and the card
+    compute the same bits (an f32 torch.addcmul contracts differently on
+    each)."""
+    if isinstance(b, float):
+        # a scalar stays on the host: a device copy of it would wait for
+        # the card
+        return torch.add(c.double(), a.double(), alpha=b).float()
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+# glibc's single-precision sine and cosine (2.36, sysdeps/ieee754/flt-32:
+# s_sinf.c, s_cosf.c, sincosf.h, sincosf_data.c), which is what the JAX
+# reference's CPU backend calls for f32 cos/sin.  The constants are
+# __sincosf_table[0] as the installed x86-64 libm.so.6 holds it, and the
+# arithmetic is that of its FMA variant (__sinf_fma/__cosf_fma, the one
+# glibc selects on CPUs with FMA and AVX2), read from its disassembly:
+#   n = ((int32)(x * 2/pi * 2^24) + 2^23) >> 24,   r = fma(-n, pi/2, x)
+#   sin: fma(r^5, fma(r^2, S3, S2), fma(r^3, S1, r))
+#   cos: fma(r^6, fma(r^2, C4, C3), fma(r^4, C2, fma(r^2, C1, C0)))
+# in f64, the quadrant n & 3 picking the polynomial and the sign, and one
+# rounding to f32.  For |x| < 0.75 glibc skips the reduction, which is
+# the same arithmetic with n = 0; below 2^-12 it returns x and 1, which
+# the polynomials round to as well.
+_SC_HPI_INV = float.fromhex("0x1.45f306dc9c883p+23")     # 2/pi * 2^24
+_SC_HPI = float.fromhex("0x1.921fb54442d18p+0")          # pi/2
+# pi/2 split into 25 + 28 significant bits: for |x| < 120 (|n| <= 76)
+# n*HI and n*LO are exact, and so is x - n*HI (both multiples of 2^-24,
+# the difference below 1), so (x - n*HI) - n*LO rounds once, as the
+# fused reduction does
+_SC_HPI_HI = float.fromhex("0x1.921fb5p+0")
+_SC_HPI_LO = _SC_HPI - _SC_HPI_HI
+_SC_C = tuple(float.fromhex(h) for h in (
+    "0x1p+0", "-0x1.ffffffd0c621cp-2", "0x1.55553e1068f19p-5",
+    "-0x1.6c087e89a359dp-10", "0x1.99343027bf8c3p-16"))
+_SC_S = tuple(float.fromhex(h) for h in (
+    "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
+    "-0x1.994eb3774cf24p-13"))
+SINCOSF_MAX = 120.0     # glibc's fast-reduction range
+
+
+def _sincosf_glibc(x: torch.Tensor):
+    """(sinf(x), cosf(x)) of an f32 tensor, bit for bit as glibc computes
+    them (see above), on any device.  The polynomial steps are not fused
+    here; that moves the f32 result about 2^-28 of the time.  Only glibc's
+    paths for |x| < 120 are written: a larger or non-finite input fails a
+    device-side assertion (raises on the CPU) instead of returning a wrong
+    value."""
+    if x.numel():
+        torch._assert_async(x.abs().amax() < SINCOSF_MAX,
+                            "_sincosf_glibc: |x| >= 120 or not finite")
+    xd = x.double()
+    n = ((xd * _SC_HPI_INV).to(torch.int32) + 0x800000) >> 24
+    nd = n.double()
+    r = (xd - nd * _SC_HPI_HI).sub_(nd * _SC_HPI_LO)
+    del xd, nd
+    r2 = r * r
+    r3 = r2 * r
+    s = (r3 * _SC_S[0]).add_(r)
+    s = (r3.mul_(r2)).mul_((r2 * _SC_S[2]).add_(_SC_S[1])).add_(s)
+    r4 = r2 * r2
+    c = (r4 * _SC_C[2]).add_((r2 * _SC_C[1]).add_(_SC_C[0]))
+    c = (r4.mul_(r2)).mul_(r2.mul_(_SC_C[4]).add_(_SC_C[3])).add_(c)
+    s, c = s.float(), c.float()
+    # quadrant n & 3: sin = (S, C, -S, -C), cos = (C, -S, -C, S)
+    odd = (n & 1).bool()
+    sin = torch.where(odd, c, s)
+    cos = torch.where(odd, s, c)
+    sin = torch.where((n & 2).bool(), -sin, sin)
+    cos = torch.where(((n + 1) & 2).bool(), -cos, cos)
+    return sin, cos
+
+
+def tile_rows(tab: torch.Tensor, B: int) -> torch.Tensor:
+    """Tile a per-period [P, W] table to B lines (a view when P == 1)."""
+    P = tab.shape[0]
+    if P == 1:
+        return tab.expand(B, -1)
+    if P >= B:
+        return tab[:B]
+    return tab.repeat(-(-B // P), 1)[:B]
+
+
 def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
            seg_val: torch.Tensor,   # f32 [B, NSEG]
-           seg_base: torch.Tensor,  # f32 [B, NSEG]
+           seg_cnt: torch.Tensor,   # f32 [B, NSEG] phase counts in [0, M)
            seg_col: torch.Tensor,   # i32 [B, NSEG]
-           c0: torch.Tensor,        # f32 [B]
-           s0: torch.Tensor,        # f32 [B]
+           ctab: torch.Tensor,      # f32 [P] carrier cos per line, period P
+           stab: torch.Tensor,      # f32 [P]
+           unit: float,             # f32(2*pi/M): radians per count
            ):
     """Add one FM carrier to the (I, Q) block [B, W].
 
-    The per-column phase is piecewise affine over the hold segments,
-    evaluated as telescoped step functions and then with one cos/sin per
-    sample.  (The JAX package also has a rotation-chain branch for widths
-    that are a multiple of 128, and a magnitude-decay term its encoder
-    never sets; no ported mode reaches either.)"""
+    The per-column phase is piecewise affine over the hold segments
+    (the reference's telescoped f32 sums, looked up per segment), with
+    one cos/sin per sample.  Line b's carrier rotation is
+    ctab/stab[b % P].  (The JAX package also has a rotation-chain branch
+    for widths that are a multiple of 128, and a magnitude-decay term its
+    encoder never sets; no ported mode reaches either.)
+
+    Bit for bit the JAX encoder on its CPU backend, where fm_prepare and
+    fm_add run in one compiled step: cos/sin are glibc's
+    (`_sincosf_glibc`), and each product that XLA's CPU compiler fuses
+    into the following add or subtract is fused here, in f64 where the
+    f32 product is exact (see `fma32`); every other product is rounded on
+    its own.  (jit-compiled on its own, the JAX fm_add fuses fewer.)"""
     B, W = out_i.shape
     if W % 128 == 0:
         raise NotImplementedError(
@@ -68,32 +165,59 @@ def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     kd = float(np.float32(st.kd))
 
     # affine pieces: phi_j(col) = A_j + B_j*col with
-    # A_j = base_j + kd*v_j*(1 - c_j), B_j = kd*v_j
-    segA = seg_base + kd * seg_val * (1.0 - seg_col.to(f32))
+    # A_j = base_j + kd*v_j*(1 - c_j), B_j = kd*v_j, base_j = cnt_j*unit.
+    # Mirrors XLA's CPU contraction: kd*v, 1 - c and their product are
+    # rounded, and cnt*unit is fused into the add
     segB = kd * seg_val
+    segA = fma32(seg_cnt, unit, segB * (1.0 - seg_col.to(f32)))
 
-    A = segA[:, 0:1].expand(B, W)
-    Bc = segB[:, 0:1].expand(B, W)
-    for j in range(1, st.nseg):
-        m = (colsf >= seg_col[:, j:j + 1].to(f32)).to(f32)
-        A = A + m * (segA[:, j] - segA[:, j - 1])[:, None]
-        Bc = Bc + m * (segB[:, j] - segB[:, j - 1])[:, None]
+    # The reference telescopes A = A_0 + sum_j [col >= c_j] (A_j - A_j-1)
+    # in f32, left to right.  The segment starts c_j increase along j, so
+    # a column's sum stops at its own segment k: the f32 prefix sums over
+    # the [B, NSEG] table, picked by k, are the same bits
+    def prefix(seg):
+        d = seg[:, 1:] - seg[:, :-1]
+        acc = [seg[:, 0]]
+        for j in range(seg.shape[1] - 1):
+            acc.append(acc[-1] + d[:, j])
+        return torch.stack(acc, 1)
 
-    phi = A + Bc * colsf
-    cphi = torch.cos(phi)
-    sphi = torch.sin(phi)
+    cols = torch.arange(W, dtype=torch.int32, device=out_i.device)
+    k = torch.searchsorted(seg_col[:, 1:].contiguous(),
+                           cols.expand(B, W).contiguous(), right=True)
+    A = torch.gather(prefix(segA), 1, k)
+    Bc = torch.gather(prefix(segB), 1, k)
+    del k
 
-    # carrier angle: theta_c = rot(line) + table(col); combine rotations
-    cc = c0[:, None] * st.cos_x[None, :] - s0[:, None] * st.sin_x[None, :]
-    cs = s0[:, None] * st.cos_x[None, :] + c0[:, None] * st.sin_x[None, :]
+    # mirrors XLA's CPU contraction: A + Bc*col is one fused step
+    phi = fma32(Bc, colsf, A)
+    del A, Bc
+    sphi, cphi = _sincosf_glibc(phi)
+    del phi
 
-    # cos/sin(theta_c + phi)
-    ci = cc * cphi - cs * sphi
-    cq = cs * cphi + cc * sphi
-    # tie-break rotation matching the reference's int-iteration phase lag
+    # carrier angle theta_c = rot(line) + table(col), over one period of
+    # lines and then tiled.  Mirrors XLA's CPU contraction here and in the
+    # next step: of a*b +- c*d, c*d is rounded and a*b fused into the add
+    c0, s0 = ctab[:, None], stab[:, None]
+    cos_x, sin_x = st.cos_x[None, :], st.sin_x[None, :]
+    cc = fma32(c0, cos_x, -(s0 * sin_x))
+    cs = fma32(s0, cos_x, c0 * sin_x)
+
+    # cos/sin(theta_c + phi); cc*cphi and cs*cphi are exact in f64
+    cphi = cphi.double()
+    ci = (tile_rows(cc.double(), B) * cphi).sub_(
+        (tile_rows(cs, B) * sphi).double()).float()
+    cq = (tile_rows(cs.double(), B) * cphi).add_(
+        (tile_rows(cc, B) * sphi).double()).float()
+    del cphi, sphi
+    # tie-break rotation matching the reference's int-iteration phase lag,
+    # fused as ci - e*cq and cq + e*ci from the old ci and cq (e*x is
+    # exact in f64)
     if st.eps:
         e = float(np.float32(st.eps))
-        ci, cq = ci - e * cq, cq + e * ci
+        ci, cq = ci.double(), cq.double()
+        ci, cq = (torch.add(ci, cq, alpha=-e).float(),
+                  torch.add(cq, ci, alpha=e).float())
 
     # reference: ((phase.i >> 16) * level) >> 15 — two truncating shifts.
     # phase.i>>16 yields at most 32767 (int32 phase magnitude 2^31-1);
@@ -140,14 +264,6 @@ def _cumsum_mod(x: torch.Tensor, M: int, bound: int) -> torch.Tensor:
     offs = _cumsum_mod(rows, M, M)
     offs_ex = torch.cat([offs.new_zeros(1), offs[:-1]])
     return (((within % M) + offs_ex[:, None]) % M).reshape(-1)[:n]
-
-
-def tile_tab(tab: torch.Tensor, B: int) -> torch.Tensor:
-    """Tile a per-period table to B lines."""
-    P = tab.shape[0]
-    if P >= B:
-        return tab[:B]
-    return tab.repeat(-(-B // P))[:B]
 
 
 @dataclass
@@ -209,13 +325,13 @@ def fm_prepare(fw: FMWin, st: FMStatics, B: int,
     vwin = _class_windows(h32, offq, offr, fw.m_step, G, S)
     bwin = _class_windows(xc, offq, offr, fw.m_step, G, S)
     seg_val = vwin.transpose(0, 1).reshape(-1, S)[:B].to(torch.float32)
-    seg_base = (bwin.transpose(0, 1).reshape(-1, S)[:B].to(torch.float32)
-                * float(np.float32(2.0 * np.pi / fw.M)))
+    # the phase at each segment start is seg_cnt * unit; fm_add fuses
+    # that product, so it stays unrounded here
+    seg_cnt = bwin.transpose(0, 1).reshape(-1, S)[:B].to(torch.float32)
+    unit = float(np.float32(2.0 * np.pi / fw.M))
 
     seg_col = col0[None].expand(G, P, S).reshape(-1, S)[:B]
-    c0 = tile_tab(ctab, B)
-    s0 = tile_tab(stab, B)
-    args = (seg_val, seg_base, seg_col, c0, s0)
+    args = (seg_val, seg_cnt, seg_col, ctab[:B], stab[:B], unit)
     if adv is not None:
         return args, xa_next
     return args

@@ -62,12 +62,13 @@ def statics_from_numpy(enc, arrays: dict) -> None:
             a = arrays[f]
             upd[f] = (t(a[0]), t(a[1])) if f == "carrier_rows" else t(a)
     enc.dstatics = dataclasses.replace(enc.dstatics, **upd)
+    # the stream FIR's taps stay on the host (see Encoder.__init__)
+    h = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32))
     if "vfilter_ctaps" in arrays:
         c = np.asarray(arrays["vfilter_ctaps"], np.complex64)
-        enc.vf_taps = (t(c.real), t(c.imag))
+        enc.vf_taps = (h(c.real), h(c.imag))
     elif "vfilter_taps" in arrays:
-        enc.vf_taps = (t(np.asarray(arrays["vfilter_taps"], np.float32)),
-                       None)
+        enc.vf_taps = (h(arrays["vfilter_taps"]), None)
     if "cos_x" in arrays:
         enc.fm_statics.cos_x = t(arrays["cos_x"])
         enc.fm_statics.sin_x = t(arrays["sin_x"])

@@ -91,14 +91,15 @@ class Encoder:
         self.statics = raster.make_statics(p, self.vframe_x, source.width)
         self.dstatics = raster.to_device(self.statics, self.device)
         self._use_prv = bool(np.any(self.statics.sync_head))
+        # the stream FIR's taps stay on the host: the kernel takes them by
+        # value at each launch
         self.vf_taps = None
         if p.vfilter_ctaps is not None:
             self.vf_taps = tuple(
-                torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+                torch.as_tensor(np.ascontiguousarray(a))
                 for a in (p.vfilter_ctaps.real, p.vfilter_ctaps.imag))
         elif p.vfilter_taps is not None:
-            self.vf_taps = (torch.as_tensor(p.vfilter_taps,
-                                            device=self.device), None)
+            self.vf_taps = (torch.as_tensor(p.vfilter_taps), None)
 
         self.halo_after = 1
         self.complex_out = conf.output_type == OutputType.COMPLEX

@@ -23,6 +23,11 @@ A tensor on the CPU goes to the plain version (`stream_fir_plain`, a torch
 `addcmul` chain in the same tap order).  A CUDA tensor launches the kernel
 of csrc/stream_fir.cu or raises; there is no fallback.  Each kernel wrapper
 counts its launches in its `launches` attribute.
+
+The kernel takes its taps by value, from the host: on the card path the
+taps must be CPU tensors (the encoder keeps them there), as the JAX
+stream_fir takes numpy taps.  Taps on the card are refused: copying them
+back would wait for the card at every launch.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 
 from . import cuda_build
 
-_TILE = 2048            # outputs per CUDA block (csrc/stream_fir.cu kTile)
+MAX_TAPS = 256          # taps a launch passes by value (csrc kMaxTaps)
 _fn = None              # stream_fir_launch, bound at the first launch
 
 
@@ -49,10 +54,11 @@ def stream_fir_plain(xs: torch.Tensor, taps_r: torch.Tensor,
     """Plain PyTorch version: one addcmul (a fused multiply-add per
     sample) per tap, in the kernel's order."""
     def chain(taps):
-        r = taps.flip(0)
+        rh = taps.cpu().flip(0)
+        r = rh.to(xs.device)
         if r.shape[0] == 1:
             return r[0] * xs[0:n]
-        if fuse_second(float(r[0]), float(r[1])):
+        if fuse_second(float(rh[0]), float(rh[1])):
             acc = torch.addcmul(r[0] * xs[0:n], xs[1:n + 1], r[1])
         else:
             acc = torch.addcmul(r[1] * xs[1:n + 1], xs[0:n], r[0])
@@ -73,14 +79,15 @@ def _check(xs: torch.Tensor, taps: list, n: int) -> int:
     if xs.shape[0] < n + nt - 1:
         raise ValueError(f"stream_fir: xs has {xs.shape[0]} samples, "
                          f"needs n + nt - 1 = {n + nt - 1}")
-    if nt < 1 or nt - 1 > _TILE:
-        raise ValueError(f"stream_fir: {nt} taps; the halo must fit one "
-                         f"{_TILE}-sample tile")
+    if nt < 1 or nt > MAX_TAPS:
+        raise ValueError(f"stream_fir: {nt} taps; 1 to {MAX_TAPS} are "
+                         "supported")
     for t in taps:
         if (t.dtype != torch.float32 or t.dim() != 1 or t.shape[0] != nt
-                or not t.is_contiguous() or t.device != xs.device):
+                or not t.is_contiguous() or t.device.type != "cpu"):
             raise ValueError("stream_fir: taps must be contiguous float32 "
-                             f"[{nt}] tensors on {xs.device}")
+                             f"[{nt}] tensors on the CPU (the kernel takes "
+                             "them by value)")
     return nt
 
 
@@ -100,6 +107,21 @@ def _launch(xs, taps_r, taps_i, y0, y1, n: int, nt: int) -> None:
     if err:
         raise RuntimeError(f"stream_fir kernel launch failed: CUDA error "
                            f"{err}")
+
+
+def kernel_config(is_complex: bool, nt: int) -> dict:
+    """Registers per thread, shared memory per block and resident blocks
+    per SM of the kernel a launch with these taps runs, on the current
+    card."""
+    fn = cuda_build.load("stream_fir").stream_fir_config
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    err = fn(int(is_complex), nt, *(ctypes.byref(v) for v in vals))
+    if err:
+        raise RuntimeError(f"stream_fir_config failed: CUDA error {err}")
+    return dict(zip(("regs", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def fir_cplx(xs: torch.Tensor, taps_r: torch.Tensor, taps_i: torch.Tensor,

@@ -1,11 +1,11 @@
 """The FM sound path (audio/limiter.py, audio/synth.py, audio/chain.py)
-against hacktv_tpu, on seeded full-scale noise.  The integer layers are
-exactly equal; fm_add's f32 cos/sin differ from XLA's in the last bit, so
-its floors may flip by 1 LSB, on a recorded share of the samples."""
+against hacktv_tpu, on seeded full-scale noise.  Every layer is exactly
+equal: the integer layers by construction, fm_add because it computes
+cos/sin as glibc does (the JAX CPU backend calls glibc's sincosf) and
+fuses the multiply-adds that XLA's CPU compiler fuses when fm_prepare
+and fm_add run in one compiled step, as in the JAX encoder."""
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -58,7 +58,16 @@ def fm(chains):
             d["offr"], d["col0"], d["ctab"], d["stab"], d["cyc_base"],
             adv=d["adv"])
 
-    return jfs, tfs, jprep, jax.jit(functools.partial(jsynth.fm_add, jfs))
+    @jax.jit
+    def jstep(d):
+        """fm_prepare and fm_add in one compiled step, as the JAX
+        encoder runs them (XLA contracts more products there than in an
+        fm_add compiled on its own)."""
+        args, _ = jprep(d)
+        z = jnp.zeros((NLINES, W), jnp.float32)
+        return jsynth.fm_add(jfs, z, z, *args)
+
+    return jfs, tfs, jprep, jstep
 
 
 def _noise(n, seed):
@@ -101,6 +110,8 @@ def test_cumsum_mod_exact(n, bound):
 
 
 def _prepare_both(chains, fm, k0):
+    """(JAX fm_prepare outputs, JAX anchor, port outputs, port anchor,
+    the JAX per-block upload)."""
     j, t, jw, tw = chains
     _, tfs, jprep, _ = fm
     dj, i0j, i0nj = j.fm_compact_block_dev(j.fm_mono, k0, NLINES, jw,
@@ -108,41 +119,79 @@ def _prepare_both(chains, fm, k0):
     dt, i0t, i0nt = t.fm_compact_block_dev(
         t.fm_mono, k0, NLINES, tw, torch.tensor(12345, dtype=torch.int32))
     assert (i0j, i0nj) == (i0t, i0nt)
-    jargs, jxa = jprep({k: jnp.asarray(v) for k, v in dj.items()})
+    dj = {k: jnp.asarray(v) for k, v in dj.items()}
+    jargs, jxa = jprep(dj)
     held = tsynth.held_device(t.fm_mono, torch.as_tensor(dt["pcm"]),
                               tchain._LIM_HIST)
     targs, txa = tsynth.fm_prepare(
         tw, tfs, NLINES, held, dt["xa"], dt["lens_off"], dt["offq"],
-        dt["offr"], torch.as_tensor(dt["col0"]), torch.as_tensor(dt["ctab"]),
-        torch.as_tensor(dt["stab"]), adv=dt["adv"])
-    return jargs, jxa, targs, txa
+        dt["offr"], *(torch.as_tensor(dt[k]) for k in ("col0", "ctab",
+                                                        "stab")),
+        adv=dt["adv"])
+    return jargs, jxa, targs, txa, dj
 
 
 @pytest.mark.parametrize("k0", [0, 1, 7 * NLINES + 1])
 def test_fm_prepare_exact(chains, fm, k0):
-    jargs, jxa, targs, txa = _prepare_both(chains, fm, k0)
+    """The port keeps the segment phase as a count and its f32 unit
+    (fm_add fuses their product; rounded, they are JAX's seg_base), and
+    the carrier rotation as one period of lines (tiled, JAX's c0, s0)."""
+    jargs, jxa, targs, txa, _ = _prepare_both(chains, fm, k0)
     assert int(txa) == int(jxa)
+    seg_val, seg_cnt, seg_col, ctab, stab, unit = targs
+    seg_base = seg_cnt * unit
+    c0, s0 = (tsynth.tile_rows(t[:, None], NLINES)[:, 0]
+              for t in (ctab, stab))
     names = ("seg_val", "seg_base", "seg_col", "c0", "s0")
-    for name, a, b in zip(names, targs, jargs):
+    for name, a, b in zip(names, (seg_val, seg_base, seg_col, c0, s0),
+                          jargs):
         a, b = a.numpy(), np.asarray(b)
         assert a.shape == b.shape and a.tobytes() == b.tobytes(), name
 
 
 @pytest.mark.parametrize("k0", [1, 7 * NLINES + 1])
 def test_fm_add_within_one_lsb(chains, fm, k0):
-    _, tfs, _, jadd = fm
-    jargs, _, targs, _ = _prepare_both(chains, fm, k0)
-    zeros = np.zeros((NLINES, W), np.float32)
-    ji, jq = map(np.asarray, jadd(jnp.asarray(zeros), jnp.asarray(zeros),
-                                  *jargs))
-    ti, tq = (a.numpy() for a in tsynth.fm_add(
-        tfs, torch.as_tensor(zeros), torch.as_tensor(zeros), *targs))
-    n = zeros.size
+    """Byte-equal to the JAX encoder's compiled fm_prepare + fm_add."""
+    _, tfs, _, jstep = fm
+    _, _, targs, _, dj = _prepare_both(chains, fm, k0)
+    ji, jq = map(np.asarray, jstep(dj))
+    zeros = torch.zeros((NLINES, W), dtype=torch.float32)
+    ti, tq = (a.numpy() for a in tsynth.fm_add(tfs, zeros, zeros, *targs))
     for name, a, b in (("I", ti, ji), ("Q", tq, jq)):
-        d = np.abs(a - b)
-        flips = int(np.count_nonzero(d))
-        # measured on an x86-64 CPU: 138 to 202 of the 450,450 samples
-        # (0.03-0.05 %) flip by one LSB, by how XLA fuses the JAX side
-        # (tests/torch_parity_report.py)
-        assert d.max() <= 1 and flips <= 1e-3 * n, \
-            f"fm_add {name}: {flips} of {n} samples flip, max {d.max()}"
+        flips = int(np.count_nonzero(a != b))
+        assert a.tobytes() == b.tobytes(), \
+            f"fm_add {name}: {flips} of {a.size} samples differ"
+
+
+def _libm_f32(name):
+    import ctypes
+    import ctypes.util
+    fn = getattr(ctypes.CDLL(ctypes.util.find_library("m")), name)
+    fn.restype = ctypes.c_float
+    fn.argtypes = [ctypes.c_float]
+    return fn
+
+
+@pytest.mark.parametrize("lo,hi", [(-4.77, 11.12), (-120.0, 120.0),
+                                   (-1e-3, 1e-3)])
+def test_sincosf_glibc_equals_libm(lo, hi):
+    """_sincosf_glibc against this process's libm sinf/cosf (which the
+    JAX CPU backend calls) on seeded inputs: fm_add's phase range, the
+    whole fast-reduction range and the tiny-argument paths."""
+    n = 1_000_000 if lo == -4.77 else 200_000
+    x = np.random.default_rng(int(hi * 100)).uniform(lo, hi, n).astype(
+        np.float32)
+    x[:4] = (0.0, -0.0, 0.75, -0.75)
+    s, c = (a.numpy() for a in tsynth._sincosf_glibc(torch.from_numpy(x)))
+    sinf, cosf = _libm_f32("sinf"), _libm_f32("cosf")
+    ref_s = np.fromiter(map(sinf, x.tolist()), np.float32, n)
+    ref_c = np.fromiter(map(cosf, x.tolist()), np.float32, n)
+    assert np.count_nonzero(s != ref_s) == 0
+    assert np.count_nonzero(c != ref_c) == 0
+
+
+def test_sincosf_glibc_refuses_large_input():
+    with pytest.raises(RuntimeError):
+        tsynth._sincosf_glibc(torch.tensor([1.0, 120.0]))
+    with pytest.raises(RuntimeError):
+        tsynth._sincosf_glibc(torch.tensor([float("nan")]))

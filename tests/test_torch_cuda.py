@@ -1,7 +1,7 @@
 """Card-only checks of the port: the CUDA kernels against their plain
-versions, and the encoder on the card against its CPU path.  They skip
-without an NVIDIA card.  The file imports neither jax nor hacktv_tpu, so
-on a machine without JAX it runs alone:
+versions (bit for bit), and the encoder on the card against its CPU path
+(byte for byte).  They skip without an NVIDIA card.  The file imports
+neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 """
@@ -33,8 +33,10 @@ def cuda():
 def test_kernels_equal_plain(cuda, seed, nt, n):
     g = torch.Generator(device=cuda).manual_seed(seed)
     xs = torch.randn(n + nt - 1, generator=g, device=cuda) * 8000.0
-    tr = torch.randn(nt, generator=g, device=cuda)
-    ti = torch.randn(nt, generator=g, device=cuda)
+    # taps from the host: the kernel takes them by value
+    gh = torch.Generator().manual_seed(seed)
+    tr = torch.randn(nt, generator=gh)
+    ti = torch.randn(nt, generator=gh)
     c0, r0 = sf.fir_cplx.launches, sf.fir_real.launches
     yi, yq = sf.stream_fir(xs, tr, ti, n)
     y = sf.stream_fir(xs, tr, None, n)
@@ -45,13 +47,50 @@ def test_kernels_equal_plain(cuda, seed, nt, n):
     assert torch.equal(y, sf.stream_fir_plain(xs, tr, None, n))
 
 
+@pytest.mark.parametrize("branch", ["fuse1", "fuse2"])
+@pytest.mark.parametrize("nt", [51, 7, 2])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_kernels_unaligned_equal_plain(cuda, offset, nt, branch):
+    """xs 0-3 floats past a 16-byte boundary, as the encoder's stream is;
+    both first-step branches; the compile-time tap count (51) and the
+    run-time loop (7, 2); n not a multiple of the 2,816-output tile.
+    Taps come from the host, as the encoder passes them."""
+    n = 5 * 2816 + 123
+    rng = np.random.default_rng(100 * nt + 10 * offset + len(branch))
+    x = torch.as_tensor((rng.standard_normal(n + nt + 7) * 8000).astype(
+        np.float32), device=cuda)
+    xs = x[offset: offset + n + nt - 1]
+    assert xs.data_ptr() % 16 == 4 * offset
+    taps = []
+    for _ in range(2):
+        t = rng.standard_normal(nt).astype(np.float32)
+        # r[0] = t[-1], r[1] = t[-2]: fuse2 is r[0] < 0 < r[1]
+        t[-1] = -abs(t[-1]) if branch == "fuse2" else abs(t[-1])
+        t[-2] = abs(t[-2])
+        taps.append(torch.from_numpy(t))
+    tr, ti = taps
+    assert sf.fuse_second(float(tr[-1]), float(tr[-2])) == (branch == "fuse2")
+    yi, yq = sf.stream_fir(xs, tr, ti, n)
+    y = sf.stream_fir(xs, tr, None, n)
+    torch.cuda.synchronize()
+    pi, pq = sf.stream_fir_plain(xs, tr, ti, n)
+    assert torch.equal(yi, pi) and torch.equal(yq, pq)
+    assert torch.equal(y, sf.stream_fir_plain(xs, tr, None, n))
+
+
 def test_wrapper_refuses_bad_input(cuda):
     xs = torch.zeros(100, device=cuda, dtype=torch.float64)
     with pytest.raises(ValueError):
         sf.stream_fir(xs, torch.ones(5, device=cuda, dtype=torch.float64),
                       None, 50)
-    with pytest.raises(ValueError):      # taps on another device
-        sf.stream_fir(xs.float(), torch.ones(5), None, 50)
+    with pytest.raises(ValueError):      # taps of the wrong type
+        sf.stream_fir(xs.float(), torch.ones(5, dtype=torch.float64), None,
+                      50)
+    with pytest.raises(ValueError):      # taps on the card
+        sf.stream_fir(xs.float(), torch.ones(5, device=cuda), None, 50)
+    with pytest.raises(ValueError):      # more taps than a launch passes
+        sf.stream_fir(torch.zeros(400, device=cuda), torch.ones(257), None,
+                      50)
 
 
 @pytest.mark.parametrize("mode,rate", [("m", 13_500_000),
@@ -65,6 +104,4 @@ def test_encoder_card_matches_cpu(cuda, mode, rate):
         snr, maxerr, ndiff = tc.error_report(g.encode_block(b),
                                              c.encode_block(b))
         msg = f"{mode} block {b}: {snr:.1f} dB, max {maxerr}, {ndiff} differ"
-        assert snr >= 60.0 and maxerr <= 2, msg
-        if mode == "pal":
-            assert ndiff == 0, msg
+        assert ndiff == 0, msg

@@ -1,9 +1,8 @@
 """The port's Encoder against hacktv_tpu's, end to end on the CPU: two
 sequential one-frame blocks of each configuration, with seeded noise for
-sound.  Bar: SNR >= 60 dB and max error <= 2 LSB (the FM carrier's f32
-cos/sin flip a floor now and then); PAL composite without the filter is
-byte-identical.  The same bar holds with the JAX encoder's statics
-carried over through convert.py."""
+sound.  Every configuration is byte-identical, NTSC-M's FM sound
+included, and so is each with the JAX encoder's statics carried over
+through convert.py."""
 
 from __future__ import annotations
 
@@ -65,9 +64,7 @@ def _check(name, got, ref, block):
     snr, maxerr, ndiff = tc.error_report(got, ref)
     msg = (f"{name} block {block}: SNR {snr:.1f} dB, max error {maxerr}, "
            f"{ndiff} of {ref.size} samples differ")
-    if name == "pal":
-        assert ndiff == 0, msg
-    assert snr >= 60.0 and maxerr <= 2, msg
+    assert ndiff == 0 and maxerr == 0 and snr == np.inf, msg
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))

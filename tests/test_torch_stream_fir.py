@@ -83,3 +83,5 @@ def test_wrapper_checks():
         sf.fir_real(xs.double(), taps.double(), 10)  # wrong dtype
     with pytest.raises(ValueError):
         sf.fir_cplx(xs, taps, torch.ones(7), 10)     # tap counts differ
+    with pytest.raises(ValueError):
+        sf.fir_real(torch.zeros(400), torch.ones(sf.MAX_TAPS + 1), 10)

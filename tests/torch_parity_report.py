@@ -3,12 +3,19 @@ counts that tests/test_torch_*.py hold to their bars, as numbers.
 
     JAX_PLATFORMS=cpu python tests/torch_parity_report.py
 
-Sections: the stream FIR's first-step rule over random tap sets, the FM
-carrier's 1-LSB flips, and each encoder configuration's first two
-one-frame blocks (SNR, max error, differing samples)."""
+    JAX_PLATFORMS=cpu python tests/torch_parity_report.py --sincosf 10000000
+
+Sections: the stream FIR's first-step rule over random tap sets, the
+glibc sin/cos emulation against this process's libm over seeded inputs in
+fm_add's phase range, the FM carrier against the JAX encoder's compiled
+fm_prepare + fm_add, and each encoder configuration's first two one-frame
+blocks (SNR, max error, differing samples)."""
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import ctypes.util
 import os
 import sys
 
@@ -51,6 +58,28 @@ def fir_rule(sets: int = 24, nt: int = 11, n: int = 3000) -> None:
         bad += int(np.count_nonzero(pi != ji) + np.count_nonzero(pq != jq))
     print(f"stream FIR: {2 * sets} random tap sets ({nt} taps, I and Q), "
           f"{bad} of {2 * sets * n} outputs differ from Pallas interpret")
+
+
+def sincosf(n: int, lo: float = -4.77, hi: float = 11.12) -> None:
+    """hacktv_tpu_torch's glibc sinf/cosf against libm's own, which the
+    JAX CPU backend calls; [lo, hi] covers the phases fm_add sees."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    for f in (libm.sinf, libm.cosf):
+        f.restype = ctypes.c_float
+        f.argtypes = [ctypes.c_float]
+    x = np.random.default_rng(11).uniform(lo, hi, n).astype(np.float32)
+    bad_s = bad_c = 0
+    for a in range(0, n, 1 << 20):
+        xb = x[a:a + (1 << 20)]
+        s, c = (t.numpy() for t in tsynth._sincosf_glibc(
+            torch.from_numpy(xb)))
+        xl = xb.tolist()
+        bad_s += int(np.count_nonzero(
+            s != np.fromiter(map(libm.sinf, xl), np.float32, len(xl))))
+        bad_c += int(np.count_nonzero(
+            c != np.fromiter(map(libm.cosf, xl), np.float32, len(xl))))
+    print(f"glibc sinf/cosf emulation: {n} inputs in [{lo}, {hi}], sin "
+          f"{bad_s}, cos {bad_c} differ from libm")
 
 
 def fm_flips() -> None:
@@ -113,8 +142,13 @@ def encoders() -> None:
 
 
 if __name__ == "__main__":
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sincosf", type=int, default=1_000_000, metavar="N",
+                    help="inputs for the sin/cos section")
+    args = ap.parse_args()
     print(f"torch {torch.__version__}, threads {torch.get_num_threads()}, "
           f"jax {jax.__version__}")
     fir_rule()
+    sincosf(args.sincosf)
     fm_flips()
     encoders()
