@@ -3,26 +3,34 @@
 
     python3 chip_smoke.py [--profile DIR]
 
+Paths: m-vsb (Encoder("m", 13.5 MS/s, --filter)), pal-lowpass
+(Encoder("pal", 16 MS/s, --filter)), pal-i (Encoder("i", 16 MS/s), the
+flagship chain with FM and NICAM-728 sound) and pal-i-vsb (the same with
+--filter).
+
 Phases, one line each (any failure exits non-zero before the result):
 
   1. card: name and power limit;
   2. build: the CUDA kernels from hacktv_tpu_torch/csrc, one nvcc each;
-  3. kernels: each kernel against its plain PyTorch version at the main
-     path's shapes, on a stream laid out and offset as the encoder's (not
-     16-byte aligned), with the encoder's taps and with taps that take the
-     other first-step branch: 0 mismatches required.  Its time, achieved
-     TB/s and TFLOP/s, the plain version's time, one PyTorch library
-     call's (cuDNN conv1d, TF32 off), its bound and its share of it, its
-     registers, shared memory and blocks per SM, and its SASS
-     instruction mix;
-  4. end to end: Encoder("m", 13.5 MS/s, --filter) and Encoder("pal",
-     16 MS/s, --filter), 64 frames per block, seeded noise for sound: 2
-     warm-up and 8 timed blocks each (the host's enqueue time and the
+  3. kernels: each kernel against its plain PyTorch version at the
+     shapes of each filtered path, on a stream laid out and offset as the
+     encoder's (not 16-byte aligned), with the encoder's taps and with
+     taps that take the other first-step branch: 0 mismatches required.
+     Its time, achieved TB/s and TFLOP/s, the plain version's time, one
+     PyTorch library call's (cuDNN conv1d, TF32 off), its bound and its
+     share of it, its registers, shared memory and blocks per SM, and its
+     SASS instruction mix;
+  4. nicam: PAL-I's device frame coder (signs_device) at the 64-frame
+     block's shapes against the port's host numpy coder, and nicam_add
+     on the card against the same call on the CPU: byte-equal required;
+     the card time of each;
+  5. end to end: each path at 64 frames per block, seeded noise for
+     sound: 2 warm-up and 8 timed blocks (the host's enqueue time and the
      block time to the card's end), with every kernel's launch count set
      to 0 just before a path and read just after;
-  5. the card against the port's CPU path, one-frame blocks 0-1:
-     byte-identical required;
-  6. the command line, 4 frames to a file.
+  6. the card against the port's CPU path, one-frame blocks 0-1 of each
+     path: byte-identical required;
+  7. the command line, 4 frames of -m i to a file.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -48,7 +56,10 @@ F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 FPB = 64                       # frames per block on the main path
 TIMED_BLOCKS = 8
 WARM_BLOCKS = 2
-PATHS = {"m-vsb": ("m", 13_500_000), "pal-lowpass": ("pal", 16_000_000)}
+PATHS = {"m-vsb": ("m", 13_500_000, True),
+         "pal-lowpass": ("pal", 16_000_000, True),
+         "pal-i": ("i", 16_000_000, False),
+         "pal-i-vsb": ("i", 16_000_000, True)}
 
 
 def fail(msg: str) -> None:
@@ -156,7 +167,9 @@ def kernel_phase(sf, VideoParams, get_mode) -> list:
     from dataclasses import replace
     out = []
     gen = torch.Generator(device="cuda").manual_seed(2024)
-    for path, (mode, rate) in PATHS.items():
+    for path, (mode, rate, vfilter) in PATHS.items():
+        if not vfilter:
+            continue
         p = VideoParams.create(replace(get_mode(mode), vfilter=True), rate, 0)
         W = p.width
         n = FPB * p.conf.lines * W
@@ -211,7 +224,7 @@ def kernel_phase(sf, VideoParams, get_mode) -> list:
         t_ops = flops / F32_FLOP_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         cfg = sf.kernel_config(nout == 2, nt)
-        rec = dict(name=name, route="cuda",
+        rec = dict(name=name, path=path, n=n, route="cuda",
                    source="hacktv_tpu_torch/csrc/stream_fir.cu",
                    replaces=src_line, launches=0, max_abs_err=err,
                    ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -237,11 +250,69 @@ def kernel_phase(sf, VideoParams, get_mode) -> list:
     return out
 
 
+def nicam_phase(Encoder) -> None:
+    """PAL-I's NICAM at the 64-frame block's shapes.  The device frame
+    coder from the stream start (frames 0..nf_max-1) against the port's
+    host numpy coder, and nicam_add of those signs on the card against
+    the same call on the CPU, each byte for byte; then the card time of
+    each (CUDA events)."""
+    from hacktv_tpu_torch.audio import nicam as nm
+    from hacktv_tpu_torch.audio import nicam_dev, synth
+    encs = {d: Encoder("i", 16_000_000, frames_per_block=FPB, device=d)
+            for d in ("cuda", "cpu")}
+    nlines = FPB * 625
+    audio = np.random.default_rng(9).integers(-32768, 32768, (
+        encs["cpu"].nicam_dev_statics.nf_max * 32, 2)).astype(np.int16)
+    res = {}
+    for d, e in encs.items():
+        st, dst = e.nicam_statics, e.nicam_dev_statics
+        nc = e.audio.nicam_device_block(0, nlines, st, dst, None)
+        # frame 0 is the modulator's initial silence; frame f carries
+        # pairs [32(f-1), 32f), behind 82 rows of J.17 history
+        pcm = np.concatenate([np.zeros((32 + 82, 2), np.int16),
+                              audio[:(dst.nf_max - 1) * 32]])
+        dev_args = (dst, torch.as_tensor(pcm, device=d),
+                    torch.zeros((), dtype=torch.int32, device=d), 0,
+                    nc["base_off"], nc["nkeep"])
+        si, sq, ds = nicam_dev.signs_device(*dev_args)
+        y = torch.zeros((nlines, 1024), device=d)
+        add_args = (st, y, y, si, sq, nc["offq"], nc["offr"],
+                    torch.as_tensor(nc["cc_off"], device=d), 0)
+        oi, oq = synth.nicam_add(*add_args)
+        res[d] = [t.cpu().numpy() for t in (si, sq, ds, oi, oq)]
+        if d == "cuda":
+            ms_signs = cuda_ms(lambda: nicam_dev.signs_device(*dev_args), 5)
+            ms_add = cuda_ms(lambda: synth.nicam_add(*add_args), 5)
+            n_keep = nc["nkeep"]
+            off = nc["base_off"]
+    pairs = nm.frame_symbols(nm.encode_frames(pcm.astype(np.int64), 0)
+                             ).reshape(-1)
+    host, _ = nm.differential_encode(pairs, 0)
+    _, dsym = nm.differential_encode(pairs[:n_keep], 0)
+    si, sq, ds = res["cuda"][:3]
+    n = len(pairs)
+    host_diff = (int(np.count_nonzero(si[off:off + n] != host[:, 0]))
+                 + int(np.count_nonzero(sq[off:off + n] != host[:, 1]))
+                 + int(int(ds) != dsym))
+    cpu_diff = {name: int(np.count_nonzero(a != b)) for name, a, b in zip(
+        ("signs_i", "signs_q", "dsym", "out_i", "out_q"), res["cuda"],
+        res["cpu"])}
+    phase("nicam", frames=dst.nf_max, symbols=n, kept=n_keep,
+          signs_vs_host_coder_differing=host_diff,
+          card_vs_cpu_differing=json.dumps(cpu_diff).replace(" ", ""),
+          signs_device_ms=f"{ms_signs:.3f}", nicam_add_ms=f"{ms_add:.3f}",
+          lines=nlines)
+    if host_diff or any(cpu_diff.values()):
+        fail("nicam: the card differs from the host coder or the CPU path")
+    del encs, res
+    torch.cuda.empty_cache()
+
+
 def e2e_phase(Encoder, NoiseSource, sf, path: str, profile_dir) -> dict:
-    mode, rate = PATHS[path]
-    probe = Encoder(mode, rate, vfilter=True, device="cpu")
+    mode, rate, vfilter = PATHS[path]
+    probe = Encoder(mode, rate, vfilter=vfilter, device="cpu")
     src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
-    enc = Encoder(mode, rate, vfilter=True, frames_per_block=FPB,
+    enc = Encoder(mode, rate, vfilter=vfilter, frames_per_block=FPB,
                   source=src, device="cuda")
     counts = (sf.fir_cplx, sf.fir_real)
     for c in counts:
@@ -277,19 +348,24 @@ def e2e_phase(Encoder, NoiseSource, sf, path: str, profile_dir) -> dict:
           median_enqueue_s=f"{statistics.median(enqueue_s):.4f}",
           launches=json.dumps(launches).replace(" ", ""),
           peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    want = "fir_cplx" if path == "m-vsb" else "fir_real"
-    if launches[want] != nblocks:
-        fail(f"{path}: {want} launched {launches[want]} times for "
-             f"{nblocks} blocks")
+    want = ({} if not vfilter else
+            {"fir_cplx": nblocks} if enc.vf_taps[1] is not None else
+            {"fir_real": nblocks})
+    for k, v in launches.items():
+        if v != want.get(k, 0):
+            fail(f"{path}: {k} launched {v} times for {nblocks} blocks")
     if profile_dir:
         profile_block(enc, WARM_BLOCKS + TIMED_BLOCKS, path, profile_dir)
     del enc, outs
     torch.cuda.empty_cache()
-    return {want: launches[want]}
+    return launches
 
 
 def profile_block(enc, b, path, out_dir):
-    """Kernel times of one block under torch.profiler, to a file."""
+    """Kernel times of one block under torch.profiler, to a file, and
+    the block's count of device activities (kernels and copies) and
+    their summed device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -300,16 +376,19 @@ def profile_block(enc, b, path, out_dir):
                                       row_limit=40)
     with open(os.path.join(out_dir, f"profile_{path}.txt"), "w") as f:
         f.write(table)
-    phase("profile", path=path, file=os.path.join(out_dir,
-                                                   f"profile_{path}.txt"))
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    phase("profile", path=path, device_activities=len(dev),
+          device_ms=f"{sum(dev) / 1e3:.2f}",
+          file=os.path.join(out_dir, f"profile_{path}.txt"))
 
 
 def cpu_compare_phase(Encoder, NoiseSource) -> None:
-    for path, (mode, rate) in PATHS.items():
-        probe = Encoder(mode, rate, vfilter=True, device="cpu")
+    for path, (mode, rate, vfilter) in PATHS.items():
+        probe = Encoder(mode, rate, vfilter=vfilter, device="cpu")
         src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
-        g = Encoder(mode, rate, vfilter=True, source=src, device="cuda")
-        c = Encoder(mode, rate, vfilter=True, source=src, device="cpu")
+        g = Encoder(mode, rate, vfilter=vfilter, source=src, device="cuda")
+        c = Encoder(mode, rate, vfilter=vfilter, source=src, device="cpu")
         for b in range(2):
             a = g.encode_block(b).astype(np.int64)
             r = c.encode_block(b).astype(np.int64)
@@ -331,15 +410,15 @@ def cli_phase() -> None:
         out = os.path.join(tmp, "out.bin")
         t = time.perf_counter()
         r = subprocess.run(
-            [sys.executable, "-m", "hacktv_tpu_torch", "-m", "m", "--filter",
-             "-s", "13500000", "--frames", "4", "-o", out, "test"],
+            [sys.executable, "-m", "hacktv_tpu_torch", "-m", "i",
+             "--frames", "4", "-o", out, "test"],
             capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
             fail(f"cli exited {r.returncode}: {r.stderr[-2000:]}")
         size = os.path.getsize(out)
         phase("cli", bytes=size, seconds=f"{time.perf_counter() - t:.1f}")
-        if size != 4 * 450450 * 2 * 2:
-            fail(f"cli wrote {size} bytes, expected {4 * 450450 * 4}")
+        if size != 4 * 640_000 * 2 * 2:
+            fail(f"cli wrote {size} bytes, expected {4 * 640_000 * 4}")
 
 
 def main() -> int:
@@ -368,13 +447,16 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     sass_mix(cuda_build.lib_path("stream_fir"))
     recs = kernel_phase(sf, VideoParams, get_mode)
+    nicam_phase(Encoder)
     launches = {}
     for path in PATHS:
-        launches.update(e2e_phase(Encoder, NoiseSource, sf, path,
-                                  args.profile))
-    for _, rec in recs:
-        rec["launches"] = launches["fir_cplx" if rec["name"].endswith("cplx")
-                                   else "fir_real"]
+        launches[path] = e2e_phase(Encoder, NoiseSource, sf, path,
+                                   args.profile)
+    for path, rec in recs:
+        rec["launches"] = launches[path]["fir_cplx" if rec["name"].endswith(
+            "cplx") else "fir_real"]
+        if not rec["launches"]:
+            fail(f"{path}: {rec['name']} was not launched on the main path")
     cpu_compare_phase(Encoder, NoiseSource)
     cli_phase()
     print(json.dumps({"kernels": [rec for _, rec in recs]}))

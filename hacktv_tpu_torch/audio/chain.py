@@ -1,14 +1,14 @@
 """Host-side audio pipeline: the 32 kHz audio-rate bookkeeping of the FM
-mono carrier.
+mono carrier and of NICAM-728.
 
-Port of the FM parts of hacktv_tpu/audio/chain.py.  The reference
-processes audio one output sample at a time inside the video loop
-(src/video.c:3261-3450).  Here the host fetches the volume-scaled PCM
+Port of the FM and NICAM parts of hacktv_tpu/audio/chain.py.  The
+reference processes audio one output sample at a time inside the video
+loop (src/video.c:3261-3450).  Here the host fetches the volume-scaled PCM
 window of each block and computes the per-class window offsets and carrier
 tables (numpy, exact integer arithmetic on the absolute output-sample
-index); the channel mix, limiter and phase prefix sums run on the device
-(audio/synth.py).  Stereo (A2), AM, NICAM and DANCE carriers are not
-ported yet and raise.
+index); the FM channel mix, limiter and phase prefix sums, and the NICAM
+frame encoder, run on the device (audio/synth.py, audio/nicam_dev.py).
+Stereo (A2), AM and DANCE carriers are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config.standards import Modulation, Preemph, VidConfig
+from . import nicam as nicam_mod
 from .limiter import Limiter
 from .preemph import FLAT_TAPS, taps_for
 
@@ -92,7 +93,6 @@ class AudioChain:
 
         for level, carrier, what in (
                 (conf.am_audio_level, conf.am_mono_carrier, "AM audio"),
-                (conf.nicam_level, conf.nicam_carrier, "NICAM"),
                 (conf.dance_level, conf.dance_carrier, "DANCE")):
             if level > 0 and carrier != 0:
                 raise NotImplementedError(f"{what} is not ported yet")
@@ -104,6 +104,17 @@ class AudioChain:
             self.fm_mono = FMCarrier.create(
                 conf.fm_mono_carrier, conf.fm_mono_deviation,
                 conf.fm_mono_level * slevel, conf.fm_mono_preemph, self.S)
+
+        self.nicam = None
+        if conf.nicam_level > 0 and conf.nicam_carrier != 0:
+            self.nicam = {
+                "timing": nicam_mod.SymbolTiming.create(self.S),
+                "taps": nicam_mod.mod_taps(self.S, conf.nicam_beta,
+                                           conf.nicam_level * slevel),
+            }
+            fi = int(round(conf.nicam_carrier))
+            g = math.gcd(fi, self.S)
+            self.nicam["num"], self.nicam["den"] = fi // g, self.S // g
 
         # Max segments a line can span: audio events in W samples + hold
         self.nseg = _ceil_div(width * self.A, self.S) + 2
@@ -272,6 +283,75 @@ class AudioChain:
             return (np.cos(ang).astype(np.float32),
                     np.sin(ang).astype(np.float32))
         return self._carrier_rot(num, den, k0, nlines)
+
+    # -- device-encoded NICAM --------------------------------------------
+    def nicam_device_block(self, k0: int, nlines: int, st, dst,
+                           dev_fn) -> dict:
+        """Host side of a NICAM block whose frame encoding and
+        differential stream run on the device (nicam_dev.signs_device):
+        the PCM window, placement host ints and the per-class window
+        offsets.  The differential-state carry stays on the device;
+        `dev_fn` (signs_device bound to its statics) runs only to catch
+        up after a seek."""
+        P, S = st.period, st.nslot
+        spp = st.syms_per_period
+        G = -(-nlines // P)
+        fs_ = nicam_mod.NICAM_FRAME_SYMS
+
+        ks = np.arange(k0, k0 + P, dtype=np.int64)
+        cls = ks % P
+        kf0 = st.kf[cls] + (ks - cls) // P * spp
+        sym_lo = max(0, int(kf0.min()))
+        sym_hi = int(kf0.max()) + (G - 1) * spp + S
+        f0 = sym_lo // fs_
+        f1 = (sym_hi - 1) // fs_ + 1
+
+        fa, dsym = getattr(self, "_nicam_dev_anchor", (0, 0))
+        if fa > f0:
+            fa, dsym = 0, 0                # backward seek: restart
+        if dsym is None:
+            raise RuntimeError("NICAM blocks must be encoded sequentially "
+                               "(the last block's step gave no carry)")
+        if isinstance(dsym, int):          # the stream start
+            dsym = torch.zeros((), dtype=torch.int32, device=st.pulse.device)
+        # catch up in full windows if the anchor is far behind (seek),
+        # never advancing past f0 (the final call must cover [f0, f1))
+        while f1 - fa > dst.nf_max:
+            nc = min(dst.nf_max - 4, f0 - fa)
+            pcm = torch.as_tensor(self._nicam_pcm_win(fa, dst),
+                                  device=dsym.device)
+            _, _, dsym = dev_fn(pcm, dsym, fa % 16, spp, nc * fs_)
+            fa += nc
+        base_off = spp - (f0 - fa) * fs_
+        assert 0 <= base_off <= spp, (base_off, f0, fa)
+        nkeep = max(f1 - 3 - fa, 0) * fs_
+        self._nicam_dev_anchor = (max(f1 - 3, fa), None)   # dsym via step
+
+        off0 = (kf0 - f0 * fs_ + spp).astype(np.int64)
+        assert off0.min() >= 0 and off0.max() + (G - 1) * spp + S <= dst.L
+
+        n_line = np.arange(k0, k0 + nlines, dtype=np.int64) * self.W
+        return dict(pcm=self._nicam_pcm_win(fa, dst),
+                    dsym_in=dsym,
+                    famod16=fa % 16, base_off=base_off, nkeep=nkeep,
+                    offq=(off0 // spp).astype(np.int32),
+                    offr=(off0 % spp).astype(np.int32),
+                    cc_off=(n_line % self.nicam["den"]).astype(np.int32))
+
+    def nicam_dev_dsym(self, dsym) -> None:
+        """Store the differential-state carry (a device scalar) that the
+        block's step produced, for the next block's args."""
+        fa, _ = self._nicam_dev_anchor
+        self._nicam_dev_anchor = (fa, dsym)
+
+    def _nicam_pcm_win(self, fa: int, dst) -> np.ndarray:
+        """PCM window (history first) for frames [fa, fa+nf_max).  Frame
+        f carries audio pairs [32(f-1), 32f); frame 0 is the modulator's
+        initial silence."""
+        hist = nicam_mod.J17_NTAPS - 1
+        start = 32 * (fa - 1) - hist
+        pcm = self._pcm(start, dst.nf_max * 32 + hist)
+        return np.ascontiguousarray(pcm.astype(np.int16))
 
     def _held_values(self, carrier: FMCarrier, i_lo: int, i_hi: int
                      ) -> np.ndarray:

@@ -1,21 +1,30 @@
-"""Audio subcarrier synthesis on the device: the FM carrier.
+"""Audio subcarrier synthesis on the device: the FM carrier and NICAM.
 
-Port of the FM half of hacktv_tpu/audio/synth.py.  The reference's
-per-sample modulator (src/video.c:3392-3443) becomes a batched [B, W]
-evaluation: phase = carrier term (static per-column angle table + per-line
-rotation) + deviation term (piecewise-linear within the zero-order-hold
-segments), two transcendentals per sample.
+Port of the FM and NICAM parts of hacktv_tpu/audio/synth.py, batched
+replacements for the reference's per-sample modulators
+(src/video.c:3392-3443):
 
-`fm_prepare` assembles the per-line segment arguments on the device from
-the compact per-block upload; its window offsets are host ints, so the
-windows are plain slices.  All quantisation follows the reference's
-integer arithmetic: carrier values round to the int16 grid, products
-floor-divide by 2^15/2^16.
+  - FM carrier: phase = carrier term (static per-column angle table +
+    per-line rotation) + deviation term (piecewise-linear within the
+    zero-order-hold segments); cos/sin per sample, or at every fourth
+    sample with a rotation chain between (line widths that are a multiple
+    of 128).  `fm_prepare` assembles the per-line segment arguments on
+    the device from the compact per-block upload; its window offsets are
+    host ints, so the windows are plain slices.
+  - NICAM DQPSK (src/nicam728.c:342-411): the 364 kbaud symbol grid
+    repeats against the line grid with a small period P (125 lines for
+    16 MS/s PAL), so the pulse shapes of the symbols overlapping each line
+    form a static [P, NSLOT, W] tap tensor and synthesis is one batched
+    matmul over per-line symbol amplitudes, then the reference's int32
+    carrier mix.
+
+All quantisation follows the reference's integer arithmetic: carrier
+values round to the int16 grid, products floor-divide by 2^15/2^16.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -29,6 +38,9 @@ class FMStatics:
     sin_x: torch.Tensor
     nseg: int
     eps: float = 0.0       # deterministic tie-break phase lag
+    # cos/sin at every sample even where the rotation chain applies
+    # (hacktv_tpu's fm_direct_trig)
+    direct: bool = False
 
 
 def make_fm_statics(num: int, den: int, level_int: int, kd: float,
@@ -132,6 +144,52 @@ def tile_rows(tab: torch.Tensor, B: int) -> torch.Tensor:
     return tab.repeat(-(-B // P), 1)[:B]
 
 
+def _telescope(seg: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The reference's telescoped f32 step function
+    seg_0 + sum_j [col >= c_j] (seg_j - seg_j-1), summed left to right, at
+    every column of k ([B, C] segment index of each column).  The segment
+    starts c_j increase along j, so a column's sum stops at its own
+    segment: the f32 prefix sums over the [B, NSEG] table, picked by k, are
+    the same bits."""
+    d = seg[:, 1:] - seg[:, :-1]
+    acc = [seg[:, 0]]
+    for j in range(seg.shape[1] - 1):
+        acc.append(acc[-1] + d[:, j])
+    return torch.gather(torch.stack(acc, 1), 1, k)
+
+
+def _rotation_chain(segA, segB, k, colsf, K: int = 4):
+    """(sin, cos) of the phase by hacktv_tpu's piecewise rotation (fm_add's
+    chain branch): the phase is affine inside each hold segment, so
+    cos/sin are evaluated at every K-th column only, and the K - 1
+    columns after it follow by angle addition with the segment's step
+    rotation (cos/sin of its slope, telescoped like the phase).  W must
+    be a multiple of K.  glibc's sincosf then runs at W/K columns and
+    over the [B, NSEG] step table, not at every sample.
+
+    Mirrors XLA's CPU contraction in the JAX encoder's step: the phase at
+    column K*m is fma(Bc, col, A), and of c*cb - s*sb and s*cb + c*sb
+    the second product is rounded and the first fused into the add or
+    subtract."""
+    B, W = k.shape
+    k0 = k[:, ::K].contiguous()
+    s_cur, c_cur = _sincosf_glibc(fma32(_telescope(segB, k0),
+                                        colsf[:, ::K],
+                                        _telescope(segA, k0)))
+    segSB, segCB = _sincosf_glibc(segB)
+    CB = _telescope(segCB, k)
+    SB = _telescope(segSB, k)
+    pc, ps = [c_cur], [s_cur]
+    for t in range(1, K):
+        cb, sb = CB[:, t::K], SB[:, t::K]
+        c_cur, s_cur = (fma32(c_cur, cb, -(s_cur * sb)),
+                        fma32(s_cur, cb, c_cur * sb))
+        pc.append(c_cur)
+        ps.append(s_cur)
+    return (torch.stack(ps, 2).reshape(B, W),
+            torch.stack(pc, 2).reshape(B, W))
+
+
 def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
            seg_val: torch.Tensor,   # f32 [B, NSEG]
            seg_cnt: torch.Tensor,   # f32 [B, NSEG] phase counts in [0, M)
@@ -143,23 +201,21 @@ def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     """Add one FM carrier to the (I, Q) block [B, W].
 
     The per-column phase is piecewise affine over the hold segments
-    (the reference's telescoped f32 sums, looked up per segment), with
-    one cos/sin per sample.  Line b's carrier rotation is
-    ctab/stab[b % P].  (The JAX package also has a rotation-chain branch
-    for widths that are a multiple of 128, and a magnitude-decay term its
-    encoder never sets; no ported mode reaches either.)
+    (the reference's telescoped f32 sums, looked up per segment).  Where
+    W is a multiple of 128 and `st.direct` is off, cos/sin come from the
+    rotation chain (`_rotation_chain`), else one cos/sin per sample.  Line
+    b's carrier rotation is ctab/stab[b % P].  (The JAX package also has
+    a magnitude-decay term that its encoder never sets.)
 
-    Bit for bit the JAX encoder on its CPU backend, where fm_prepare and
-    fm_add run in one compiled step: cos/sin are glibc's
-    (`_sincosf_glibc`), and each product that XLA's CPU compiler fuses
-    into the following add or subtract is fused here, in f64 where the
-    f32 product is exact (see `fma32`); every other product is rounded on
-    its own.  (jit-compiled on its own, the JAX fm_add fuses fewer.)"""
+    Bit for bit the JAX encoder on its CPU backend, where fm_prepare,
+    fm_add and the rest of the block run in one compiled step: cos/sin
+    are glibc's (`_sincosf_glibc`), and each product that XLA's CPU
+    compiler fuses into the following add or subtract is fused here, in
+    f64 where the f32 product is exact (see `fma32`); every other product
+    is rounded on its own.  Which products fuse depends on what is
+    compiled together, and so differs between the two branches; a JAX
+    fm_add jitted on its own fuses differently again."""
     B, W = out_i.shape
-    if W % 128 == 0:
-        raise NotImplementedError(
-            "fm_add: the piecewise-rotation branch (line widths that are a "
-            "multiple of 128) is not ported yet")
     f32 = torch.float32
     colsf = torch.arange(W, dtype=f32, device=out_i.device)[None, :]
     kd = float(np.float32(st.kd))
@@ -171,36 +227,26 @@ def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     segB = kd * seg_val
     segA = fma32(seg_cnt, unit, segB * (1.0 - seg_col.to(f32)))
 
-    # The reference telescopes A = A_0 + sum_j [col >= c_j] (A_j - A_j-1)
-    # in f32, left to right.  The segment starts c_j increase along j, so
-    # a column's sum stops at its own segment k: the f32 prefix sums over
-    # the [B, NSEG] table, picked by k, are the same bits
-    def prefix(seg):
-        d = seg[:, 1:] - seg[:, :-1]
-        acc = [seg[:, 0]]
-        for j in range(seg.shape[1] - 1):
-            acc.append(acc[-1] + d[:, j])
-        return torch.stack(acc, 1)
-
     cols = torch.arange(W, dtype=torch.int32, device=out_i.device)
     k = torch.searchsorted(seg_col[:, 1:].contiguous(),
                            cols.expand(B, W).contiguous(), right=True)
-    A = torch.gather(prefix(segA), 1, k)
-    Bc = torch.gather(prefix(segB), 1, k)
+    chain = not st.direct and W % 128 == 0
+    if chain:
+        sphi, cphi = _rotation_chain(segA, segB, k, colsf)
+    else:
+        # mirrors XLA's CPU contraction: A + Bc*col is one fused step
+        sphi, cphi = _sincosf_glibc(fma32(_telescope(segB, k), colsf,
+                                          _telescope(segA, k)))
     del k
-
-    # mirrors XLA's CPU contraction: A + Bc*col is one fused step
-    phi = fma32(Bc, colsf, A)
-    del A, Bc
-    sphi, cphi = _sincosf_glibc(phi)
-    del phi
 
     # carrier angle theta_c = rot(line) + table(col), over one period of
     # lines and then tiled.  Mirrors XLA's CPU contraction here and in the
-    # next step: of a*b +- c*d, c*d is rounded and a*b fused into the add
+    # next step: of a*b +- c*d, c*d is rounded and a*b fused into the add,
+    # except cc beside the rotation chain, where both products are rounded
     c0, s0 = ctab[:, None], stab[:, None]
     cos_x, sin_x = st.cos_x[None, :], st.sin_x[None, :]
-    cc = fma32(c0, cos_x, -(s0 * sin_x))
+    cc = (c0 * cos_x - s0 * sin_x if chain
+          else fma32(c0, cos_x, -(s0 * sin_x)))
     cs = fma32(s0, cos_x, c0 * sin_x)
 
     # cos/sin(theta_c + phi); cc*cphi and cs*cphi are exact in f64
@@ -335,3 +381,140 @@ def fm_prepare(fw: FMWin, st: FMStatics, B: int,
     if adv is not None:
         return args, xa_next
     return args
+
+
+# ---------------------------------------------------------------------------
+@dataclass
+class NicamStatics:
+    """Static tensors of the NICAM DQPSK synthesis (and of DANCE, which
+    shares it)."""
+    pulse: torch.Tensor     # f32 [P, NSLOT, W] per-class pulse matrices
+    lut_i: torch.Tensor     # i16 [den] carrier LUT, exactly the
+    lut_q: torch.Tensor     # reference's sin_cint16 table (common.c:209)
+    den: int                # LUT length (carrier period in samples)
+    period: int             # P lines
+    nslot: int
+    kf: np.ndarray          # i64 [P] first symbol per class (host)
+    syms_per_period: int
+    # nicam_add's index grids on the device, built at first use
+    _cache: dict = field(default_factory=dict, init=False, repr=False,
+                         compare=False)
+
+
+def make_nicam_statics(taps: np.ndarray, num: int, den: int, width: int,
+                       timing, device="cuda") -> NicamStatics:
+    """Build the per-class pulse tensor and the carrier LUTs on the host
+    (hacktv_tpu's make_nicam_statics, line for line), then on `device`.
+
+    `timing` is a nicam.SymbolTiming.  Class c represents absolute lines
+    k == c (mod P); slot s holds the pulse of symbol kf(c)+s where kf(c)
+    is the first symbol whose pulse reaches into the line.
+
+    nicam_add's f32 product is exact whatever the matmul precision: its
+    operands are integers (pulse taps) and signs in {-1, 0, +1}, so with
+    |tap| < 2048 even TF32's 11 significant bits hold them, every product
+    is exact, and every partial sum is an integer far below 2^24 (a
+    sample lies under only a few pulses)."""
+    ntaps = len(taps)
+    span = timing.sps * timing.decimation - timing.dsl
+    period = int(np.lcm(span, width) // width)
+    syms_per_period = period * width // span * timing.decimation
+    assert timing.start(syms_per_period) == period * width
+
+    # slots: max symbols whose pulse [S, S+ntaps) intersects a line
+    min_sp = timing.sps - 1
+    nslot = int(np.ceil((width + ntaps - 1) / min_sp)) + 2
+
+    # The pattern is computed one period in (line (c+P)*W) so that pulse
+    # tails from the previous period are included; kf[c] is stored
+    # relative to the first period and may be negative for the very first
+    # lines of the stream (masked by the caller).
+    pulse = np.zeros((period, nslot, width), dtype=np.float32)
+    kf = np.zeros(period, dtype=np.int64)
+    for c in range(period):
+        line_start = (c + period) * width
+        # first symbol with S_k + ntaps > line_start
+        k = max(0, (line_start - ntaps) // timing.sps - 2)
+        while int(timing.start(k)) + ntaps <= line_start:
+            k += 1
+        kf[c] = k - syms_per_period
+        for s in range(nslot):
+            off = int(timing.start(k + s)) - line_start
+            if off >= width:
+                break
+            lo = max(0, off)
+            hi = min(width, off + ntaps)
+            pulse[c, s, lo:hi] = taps[lo - off: hi - off]
+    if np.abs(pulse).max() >= 2048:
+        raise ValueError("NICAM pulse taps need more than 11 significant "
+                         "bits: nicam_add's product would not be exact")
+
+    # the reference's carrier LUT: round(cos(d*i)*32767) over one full
+    # period, pointer wrapping at den (src/common.c:209-226,
+    # src/nicam728.c:312, src/dance.c:412-416), so the int32 mix in
+    # nicam_add is bit-exact
+    d = 2.0 * np.pi / den * num
+    i = np.arange(den, dtype=np.float64)
+    lr = lambda a: np.where(a >= 0, np.floor(a + 0.5), np.ceil(a - 0.5))
+    t = lambda a: torch.as_tensor(a, device=device)
+    return NicamStatics(
+        pulse=t(pulse),
+        lut_i=t(lr(np.cos(d * i) * 32767.0).astype(np.int16)),
+        lut_q=t(lr(np.sin(d * i) * 32767.0).astype(np.int16)),
+        den=den, period=period, nslot=nslot, kf=kf,
+        syms_per_period=syms_per_period)
+
+
+def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
+              signs_i: torch.Tensor,   # f32 [L] per-symbol I signs (padded)
+              signs_q: torch.Tensor,   # f32 [L] per-symbol Q signs
+              offq: np.ndarray,        # i32 [P] window row per line class
+              offr: np.ndarray,        # i32 [P] window column per class
+              cc_off: torch.Tensor,    # i32 [B] carrier LUT offset per line
+              k0_mod: int,             # first line's class offset
+              ):
+    """Add the NICAM DQPSK burst to the (I, Q) block [B, W].
+
+    Lines of the same class c (k = c mod P) consume exactly
+    syms_per_period (spp) symbols per period, so the amplitudes of all G
+    lines of a class form a [G, NSLOT] window into the sign stream at
+    stride spp.  The windows of both streams and all classes come from
+    one gather (a static [2, G, S] index grid plus the P window starts,
+    uploaded per block) and go through one batched product with the
+    pulse matrices; the sign buffer is zero-prepadded by one period so
+    pre-stream symbols read 0.  Window starts are clamped into range, as
+    the reference's dynamic_slice clamps them."""
+    B, W = out_i.shape
+    P, S = st.period, st.nslot
+    spp = st.syms_per_period
+    L = signs_i.shape[0]
+    G = -(-B // P)
+    dev = out_i.device
+
+    pulse = torch.roll(st.pulse, -k0_mod, dims=0)
+    grid = st._cache.get(("grid", G, L))
+    if grid is None:
+        g = np.arange(G, dtype=np.int64)[:, None] * spp + np.arange(S)
+        grid = st._cache[("grid", G, L)] = torch.as_tensor(
+            np.stack([g, g + L]), device=dev)
+    rows, cols = L // spp - 1, spp + S
+    start = (np.clip(offq, 0, rows - G).astype(np.int64) * spp
+             + np.clip(offr, 0, cols - S))
+    idx = torch.as_tensor(start, device=dev)[:, None, None, None] + grid
+    win = torch.stack([signs_i, signs_q]).reshape(-1)[idx]   # [P, 2, G, S]
+    # batched over the line class c: [P, 2G, S] x [P, S, W] -> [P, 2G, W];
+    # line b = g*P + c
+    bb = torch.bmm(win.reshape(P, 2 * G, S), pulse)
+    bb = bb.view(P, 2, G, W).permute(1, 2, 0, 3).reshape(2, G * P, W)[:, :B]
+
+    # exact reference mix (cint16_mula, src/common.h:69-78): the
+    # baseband accumulators wrap to int16, the products are int32 and
+    # the shift is arithmetic
+    cols_w = torch.arange(W, dtype=torch.int32, device=dev)
+    lut = (cc_off[:, None] + cols_w) % st.den
+    cci = st.lut_i[lut].to(torch.int32)
+    ccq = st.lut_q[lut].to(torch.int32)
+    bi, bq = ((bb.to(torch.int32) + 0x8000) & 0xFFFF) - 0x8000
+    out_i = out_i + ((bi * cci - bq * ccq) >> 15).to(torch.float32)
+    out_q = out_q + ((bi * ccq + bq * cci) >> 15).to(torch.float32)
+    return out_i, out_q

@@ -1,12 +1,13 @@
 """Command-line interface: the subset of hacktv's options that the port
 covers (port of hacktv_tpu/cli.py).
 
-    python -m hacktv_tpu_torch -m m --filter --frames 4 -o out.bin test
+    python -m hacktv_tpu_torch -m i --frames 4 -o out.bin test
 
-writes 4 frames of NTSC-M with the VSB filter and FM sound as interleaved
-int16 I/Q.  Accepted: -m MODE, -s RATE, --filter, --noaudio, -t TYPE,
--o FILE, --frames N, --device {cuda,cpu} and the input `test`.  Any other switch is refused; modes and options that the
-port does not cover yet raise NotImplementedError.
+writes 4 frames of PAL-I with FM and NICAM-728 sound as interleaved int16
+I/Q.  Accepted: -m MODE, -s RATE, --filter, --noaudio, --nonicam, -t TYPE,
+-o FILE, --frames N, --device {cuda,cpu} and the input `test`.  Any other
+switch is refused; modes and options that the port does not cover yet
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ def _build_parser() -> argparse.ArgumentParser:
     a("-s", "--samplerate", type=float, default=16e6)
     a("--filter", action="store_true", dest="vfilter")
     a("--noaudio", action="store_true")
+    a("--nonicam", action="store_true")
     a("-t", "--type", default="int16",
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
     a("--frames", type=int, default=0,
@@ -55,6 +57,8 @@ def main(argv=None) -> int:
         conf = replace(conf, fm_mono_level=0.0, fm_left_level=0.0,
                        fm_right_level=0.0, am_audio_level=0.0,
                        nicam_level=0.0, dance_level=0.0)
+    if args.nonicam:
+        conf = replace(conf, nicam_level=0.0)
 
     # 16 frames per block, or --frames if fewer
     fpb = min(16, args.frames) if args.frames else 16

@@ -5,8 +5,11 @@ The statics play the role that weights play in a model: the raster
 constants (`RasterStatics`: sync templates, chroma taps, burst, colour
 carrier rows or tables), the video filter taps (`VideoParams.vfilter_ctaps`
 or `vfilter_taps`), the FM carrier's column tables (`FMStatics.cos_x`,
-`sin_x`) and the FM hold lengths (`FMWin.lens_tiled`).  `carrier_rows`, a
-(cos, sin) pair of [P, W] tables, travels stacked as one [2, P, W] array.
+`sin_x`), the FM hold lengths (`FMWin.lens_tiled`), the NICAM pulse
+matrices and carrier LUTs (`NicamStatics.pulse`, `lut_i`, `lut_q`) and the
+NICAM frame encoder's tables (`NicamDevStatics.perm`, `prn`, `taps`).
+`carrier_rows`, a (cos, sin) pair of [P, W] tables, travels stacked as one
+[2, P, W] array.
 
     arrays = statics_to_numpy(enc)          # {name: np.ndarray}
     statics_from_numpy(other_enc, arrays)   # installs them on its device
@@ -22,6 +25,8 @@ import torch
 RASTER_FIELDS = ("sync_main", "sync_tail", "sync_head", "chroma_taps",
                  "burst_u", "burst_v", "carrier_rows", "carrier_cos",
                  "carrier_sin")
+NICAM_FIELDS = ("pulse", "lut_i", "lut_q")
+NICAM_DEV_FIELDS = ("perm", "prn", "taps")
 
 
 def statics_to_numpy(enc) -> dict:
@@ -44,6 +49,11 @@ def statics_to_numpy(enc) -> dict:
         out["cos_x"] = host(enc.fm_statics.cos_x)
         out["sin_x"] = host(enc.fm_statics.sin_x)
         out["lens_tiled"] = host(enc.fm_win.lens_tiled)
+    if enc.nicam_statics is not None:
+        for f in NICAM_FIELDS:
+            out[f] = host(getattr(enc.nicam_statics, f))
+        for f in NICAM_DEV_FIELDS:
+            out[f] = host(getattr(enc.nicam_dev_statics, f))
     return out
 
 
@@ -73,3 +83,9 @@ def statics_from_numpy(enc, arrays: dict) -> None:
         enc.fm_statics.cos_x = t(arrays["cos_x"])
         enc.fm_statics.sin_x = t(arrays["sin_x"])
         enc.fm_win.lens_tiled = t(arrays["lens_tiled"])
+    if "pulse" in arrays:
+        enc.nicam_statics = dataclasses.replace(
+            enc.nicam_statics, **{f: t(arrays[f]) for f in NICAM_FIELDS})
+        enc.nicam_dev_statics = dataclasses.replace(
+            enc.nicam_dev_statics,
+            **{f: t(arrays[f]) for f in NICAM_DEV_FIELDS})

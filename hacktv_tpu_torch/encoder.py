@@ -1,19 +1,21 @@
 """Top-level encoder: source frames -> block synthesis on the device ->
 int16 samples.
 
-Port of hacktv_tpu/encoder.py for the raster modes with the video filter
-and FM mono sound (NTSC-M + VSB `--filter`, PAL/NTSC composite with the
-low-pass `--filter`, and the same modes without the filter).  A block of
-`frames_per_block` whole frames, plus one halo line each side for filter
-continuity, is synthesised as a sequence of tensor ops on one device:
+Port of hacktv_tpu/encoder.py for the raster modes with the video filter,
+FM mono sound and NICAM-728 (PAL-I, the flagship chain, and PAL-B/G,
+NTSC-M + VSB `--filter`, PAL/NTSC composite with the low-pass `--filter`,
+and the same modes without the filter).  A block of `frames_per_block`
+whole frames, plus one halo line each side for filter continuity, is
+synthesised as a sequence of tensor ops on one device:
 
     raster (video/raster.py) -> stream FIR (ops/stream_fir.py, the CUDA
-    kernel on a card) -> FM sound carrier (audio/synth.py) -> int16
+    kernel on a card) -> FM sound carrier (audio/synth.py) -> NICAM
+    (audio/nicam_dev.py, audio/synth.py) -> int16
 
 The stream-line counter `k` is the only state: k=0 is the first rendered
 line, (frame 1, line 1), with zero filter history at the stream start.
-The FM phase anchor is a device scalar chained block to block, so blocks
-must be encoded in order.
+The FM phase anchor and the NICAM differential state are device scalars
+chained block to block, so blocks must be encoded in order.
 
 Metadata, line tables, taps and the audio window bookkeeping stay host
 numpy.  Options that are not ported yet raise NotImplementedError.
@@ -29,6 +31,8 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from .audio import nicam as nicam_mod
+from .audio import nicam_dev
 from .audio import synth as audio_synth
 from .audio.chain import _LIM_HIST, AudioChain
 from .av.testcard import TestCardSource
@@ -56,7 +60,7 @@ class Encoder:
                  pixel_rate: int = 0, source=None,
                  frames_per_block: int = 1, vfilter: bool = False,
                  offset: int = 0, devices=None, device="cuda",
-                 **unported):
+                 fm_direct_trig: bool = False, **unported):
         for name, value in unported.items():
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -67,6 +71,9 @@ class Encoder:
         if pixel_rate and int(pixel_rate) != int(sample_rate):
             raise NotImplementedError("--pixelrate is not ported yet")
         self.device = resolve_device(device)
+        # cos/sin of the FM phase at every sample, not through the K=4
+        # rotation chain (hacktv_tpu's switch of the same name)
+        self._fm_direct = fm_direct_trig
 
         conf = get_mode(mode) if isinstance(mode, str) else mode
         if vfilter:
@@ -125,8 +132,8 @@ class Encoder:
         self._fpb_warned = False
 
     def _init_audio(self):
-        """The FM mono sound carrier, added after the video filter
-        (src/video.c:4561)."""
+        """Audio subcarriers (FM mono, NICAM), added after the video
+        filter (src/video.c:4561)."""
         p = self.out_params
         self.audio = AudioChain(self.conf, p.sample_rate, p.width,
                                 self.source)
@@ -139,6 +146,7 @@ class Encoder:
             self.fm_statics = audio_synth.make_fm_statics(
                 c.num, c.den, c.level_int, c.kd, p.width, self.audio.nseg,
                 c.eps, device=self.device)
+            self.fm_statics.direct = self._fm_direct
             self.fm_win = self.audio.fm_win_config(c, nlines, self.device)
             if self.fm_win is None:
                 raise NotImplementedError(
@@ -150,7 +158,24 @@ class Encoder:
             self._fm_xa: dict = {0: [None, torch.zeros(
                 (), dtype=torch.int32, device=self.device)]}
             self._fm_xa_started = False
-        self.has_audio = self.fm_statics is not None
+        self.nicam_statics = None
+        if self.audio.nicam is not None:
+            nt = self.audio.nicam
+            self.nicam_statics = audio_synth.make_nicam_statics(
+                nt["taps"], nt["num"], nt["den"], p.width, nt["timing"],
+                device=self.device)
+            # the frame encoder runs on the device; its differential
+            # state is a device scalar chained block to block
+            st = self.nicam_statics
+            spp = st.syms_per_period
+            G = -(-nlines // st.period)
+            L = (G + 4) * spp
+            nf_max = (G * spp + st.nslot) // nicam_mod.NICAM_FRAME_SYMS + 12
+            assert spp + nf_max * nicam_mod.NICAM_FRAME_SYMS <= L
+            self.nicam_dev_statics = nicam_dev.make_dev_statics(
+                nf_max, L, spp, device=self.device)
+        self.has_audio = (self.fm_statics is not None
+                          or self.nicam_statics is not None)
 
     # ------------------------------------------------------------------
     def _block_meta(self, block_no: int) -> dict:
@@ -210,7 +235,7 @@ class Encoder:
     def _step(self, yuv, m: dict, first: float, audio: dict):
         """Synthesis + output filter + audio + int16 quantisation for one
         block of frames (plus halo lines).  Returns (samples, next FM
-        phase anchor or None)."""
+        phase anchor or None, next NICAM differential state or None)."""
         p = self.params
         W = p.width
         nlines = self.frames_per_block * p.lines
@@ -240,7 +265,7 @@ class Encoder:
 
         if not self.has_audio and not self.complex_out:
             return torch.clamp(torch.round(y), -32768, 32767).to(
-                torch.int16), None
+                torch.int16), None, None
 
         out_i = y
         out_q = yq if yq is not None else torch.zeros_like(out_i)
@@ -255,6 +280,15 @@ class Encoder:
                 d["stab"], adv=d["adv"])
             out_i, out_q = audio_synth.fm_add(self.fm_statics, out_i, out_q,
                                               *fmargs)
+        dsym_next = None
+        if self.nicam_statics is not None:
+            nc = audio["nicam"]
+            signs_i, signs_q, dsym_next = nicam_dev.signs_device(
+                self.nicam_dev_statics, nc["pcm"], nc["dsym_in"],
+                nc["famod16"], nc["base_off"], nc["nkeep"])
+            out_i, out_q = audio_synth.nicam_add(
+                self.nicam_statics, out_i, out_q, signs_i, signs_q,
+                nc["offq"], nc["offr"], nc["cc_off"], audio["nicam_k0mod"])
 
         # int16 WRAP, not saturate: every reference mix into the line
         # buffer is a C `int16_t +=` (src/video.c:3261-3450), so an
@@ -263,7 +297,7 @@ class Encoder:
             return ((torch.round(v).to(torch.int32) + 0x8000) & 0xFFFF) \
                 - 0x8000
         iq = torch.stack([wrap(out_i), wrap(out_q)], dim=-1)
-        return iq.to(torch.int16), xa_next
+        return iq.to(torch.int16), xa_next, dsym_next
 
     def _audio_args(self, block_no: int) -> dict:
         """Host audio-rate computation -> per-block arguments (host ints
@@ -301,7 +335,19 @@ class Encoder:
             for k in ("pcm", "col0", "ctab", "stab"):
                 dct[k] = torch.as_tensor(dct[k], device=self.device)
             args["fm_mono"] = dct
+        if self.nicam_statics is not None:
+            nc = self.audio.nicam_device_block(
+                a_k0, nlines, self.nicam_statics, self.nicam_dev_statics,
+                self._nicam_dev_fn)
+            for k in ("pcm", "cc_off"):
+                nc[k] = torch.as_tensor(nc[k], device=self.device)
+            args["nicam"] = nc
+            args["nicam_k0mod"] = a_k0 % self.nicam_statics.period
         return args
+
+    def _nicam_dev_fn(self, *a):
+        """signs_device on this encoder's statics (the seek catch-up)."""
+        return nicam_dev.signs_device(self.nicam_dev_statics, *a)
 
     def encode_block_device(self, block_no: int) -> torch.Tensor:
         """Synthesise one block of frames_per_block frames; returns a
@@ -310,9 +356,12 @@ class Encoder:
         yuv = self._device_rgb(block_no)
         m = self._block_meta(block_no)
         first = 0.0 if block_no == 0 else 1.0
-        out, xa_next = self._step(yuv, m, first, self._audio_args(block_no))
+        out, xa_next, dsym_next = self._step(yuv, m, first,
+                                             self._audio_args(block_no))
         if self.fm_dev_held:
             self._fm_xa[block_no + 1][1] = xa_next
+        if self.nicam_statics is not None:
+            self.audio.nicam_dev_dsym(dsym_next)
         return out
 
     @property

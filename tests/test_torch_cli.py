@@ -1,12 +1,13 @@
 """The port's command line (python -m hacktv_tpu_torch): its file output
-equals Encoder.encode_block byte for byte, and it refuses what it does not
-cover."""
+equals Encoder.encode_block byte for byte, PAL-I with NICAM included, and
+it refuses what it does not cover."""
 
 from __future__ import annotations
 
 import os
 import subprocess
 import sys
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ import torch
 import _torch_common  # noqa: F401  (thread cap)
 from hacktv_tpu_torch import Encoder
 from hacktv_tpu_torch import cli
+from hacktv_tpu_torch.config import get_mode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -49,6 +51,29 @@ def test_cli_module_writes_frames(tmp_path):
     assert out.read_bytes() == ref.tobytes()
 
 
+def test_cli_pal_i_matches_encoder(tmp_path):
+    """The default mode, PAL-I with FM and NICAM sound: 4 frames, one
+    4-frame block."""
+    out = tmp_path / "out.bin"
+    assert cli.main(["-m", "i", "--frames", "4", "--device", "cpu", "-o",
+                     str(out), "test"]) == 0
+    ref = Encoder("i", 16_000_000, frames_per_block=4,
+                  device="cpu").encode_block(0)
+    assert out.stat().st_size == 4 * 640_000 * 2 * 2
+    assert out.read_bytes() == ref.tobytes()
+
+
+def test_cli_nonicam(tmp_path):
+    out = tmp_path / "out.bin"
+    assert cli.main(["-m", "i", "--nonicam", "--frames", "1", "--device",
+                     "cpu", "-o", str(out), "test"]) == 0
+    ref = Encoder(replace(get_mode("i"), nicam_level=0.0), 16_000_000,
+                  device="cpu").encode_block(0)
+    assert out.read_bytes() == ref.tobytes()
+    with_nicam = Encoder("i", 16_000_000, device="cpu").encode_block(0)
+    assert out.read_bytes() != with_nicam.tobytes()
+
+
 def test_cli_noaudio_and_type(tmp_path):
     out = tmp_path / "out.bin"
     cli.main(["-m", "m", "-s", "13500000", "--noaudio", "-t", "uint8",
@@ -59,7 +84,7 @@ def test_cli_noaudio_and_type(tmp_path):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--teletext", "x"], SystemExit),          # switch not in the subset
-    (["-m", "i"], NotImplementedError),         # NICAM
+    (["-m", "l"], NotImplementedError),         # SECAM
     (["-m", "pal", "clip.mp4"], NotImplementedError),
 ])
 def test_cli_refuses(argv, exc, tmp_path):

@@ -1,6 +1,6 @@
 """Card-only checks of the port: the CUDA kernels against their plain
-versions (bit for bit), and the encoder on the card against its CPU path
-(byte for byte).  They skip without an NVIDIA card.  The file imports
+versions (bit for bit), the NICAM coder and pulse synthesis and the
+encoder on the card against their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -14,6 +14,7 @@ import torch
 
 import _torch_common as tc
 from hacktv_tpu_torch import Encoder
+from hacktv_tpu_torch.audio import nicam_dev, synth
 from hacktv_tpu_torch.av.noise import NoiseSource
 from hacktv_tpu_torch.ops import stream_fir as sf
 
@@ -93,8 +94,40 @@ def test_wrapper_refuses_bad_input(cuda):
                       50)
 
 
+@pytest.mark.parametrize("fpb", [1, 64])
+def test_nicam_card_matches_cpu(cuda, fpb):
+    """signs_device and nicam_add of PAL-I's first block on the card and
+    on the CPU, from the same seeded PCM and video: byte-equal."""
+    encs = {d: Encoder("i", 16_000_000, frames_per_block=fpb, device=d)
+            for d in ("cpu", cuda)}
+    nlines = fpb * 625
+    out = {}
+    for d, e in encs.items():
+        nc = e.audio.nicam_device_block(0, nlines, e.nicam_statics,
+                                        e.nicam_dev_statics, None)
+        dst = e.nicam_dev_statics
+        rng = np.random.default_rng(fpb)
+        pcm = rng.integers(-32768, 32768, (dst.nf_max * 32 + 82, 2))
+        y = torch.as_tensor(np.round(rng.standard_normal(
+            (2, nlines, 1024)) * 8000).astype(np.float32), device=d)
+        si, sq, ds = nicam_dev.signs_device(
+            dst, torch.as_tensor(pcm.astype(np.int16), device=d),
+            torch.tensor(1, dtype=torch.int32, device=d), 5,
+            nc["base_off"], nc["nkeep"])
+        oi, oq = synth.nicam_add(e.nicam_statics, y[0], y[1], si, sq,
+                                 nc["offq"], nc["offr"],
+                                 torch.as_tensor(nc["cc_off"], device=d),
+                                 1)
+        out[d] = [t.cpu().numpy() for t in (si, sq, ds, oi, oq)]
+    for name, a, b in zip(("signs_i", "signs_q", "dsym", "out_i", "out_q"),
+                          out[cuda], out["cpu"]):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), \
+            f"{name}: {np.count_nonzero(a != b)} of {a.size} differ"
+
+
 @pytest.mark.parametrize("mode,rate", [("m", 13_500_000),
-                                       ("pal", 16_000_000)])
+                                       ("pal", 16_000_000),
+                                       ("i", 16_000_000)])
 def test_encoder_card_matches_cpu(cuda, mode, rate):
     probe = Encoder(mode, rate, device="cpu")
     src = NoiseSource(probe.params.active_width, probe.conf.active_lines)

@@ -97,7 +97,7 @@ def test_blocks_must_be_sequential():
         t.encode_block_device(2)
 
 
-@pytest.mark.parametrize("mode,kw", [("i", {}), ("secam", {}),
+@pytest.mark.parametrize("mode,kw", [("l", {}), ("secam", {}),
                                      ("pal", {"teletext": "demo"}),
                                      ("pal", {"offset": 1000})])
 def test_unported_options_raise(mode, kw):

@@ -8,16 +8,21 @@ counts that tests/test_torch_*.py hold to their bars, as numbers.
 Sections: the stream FIR's first-step rule over random tap sets, the
 glibc sin/cos emulation against this process's libm over seeded inputs in
 fm_add's phase range, the FM carrier against the JAX encoder's compiled
-fm_prepare + fm_add, and each encoder configuration's first two one-frame
-blocks (SNR, max error, differing samples)."""
+fm_prepare + fm_add (NTSC-M, direct cos/sin) and against the JAX PAL-I
+encoder with NICAM off (the K=4 rotation chain), the NICAM sign stream
+and contribution against hacktv_tpu's device coder and nicam_add, and each
+encoder configuration's first two one-frame blocks (SNR, max error,
+differing samples)."""
 
 from __future__ import annotations
 
 import argparse
 import ctypes
 import ctypes.util
+import functools
 import os
 import sys
+from dataclasses import replace
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -32,11 +37,13 @@ import torch  # noqa: E402
 import _torch_common as tc  # noqa: E402
 from hacktv_tpu import Encoder as JEncoder  # noqa: E402
 from hacktv_tpu.audio import chain as jchain  # noqa: E402
+from hacktv_tpu.audio import nicam_dev as jnd  # noqa: E402
 from hacktv_tpu.audio import synth as jsynth  # noqa: E402
 from hacktv_tpu.config import get_mode as jget_mode  # noqa: E402
 from hacktv_tpu.ops import pallas_fir  # noqa: E402
 from hacktv_tpu_torch import Encoder as TEncoder  # noqa: E402
 from hacktv_tpu_torch.audio import chain as tchain  # noqa: E402
+from hacktv_tpu_torch.audio import nicam_dev as tnd  # noqa: E402
 from hacktv_tpu_torch.audio import synth as tsynth  # noqa: E402
 from hacktv_tpu_torch.av.noise import NoiseSource  # noqa: E402
 from hacktv_tpu_torch.config import get_mode as tget_mode  # noqa: E402
@@ -124,20 +131,72 @@ def fm_flips() -> None:
               f"{max(np.abs(ti - ji).max(), np.abs(tq - jq).max()):.0f} LSB")
 
 
+def fm_chain() -> None:
+    """PAL-I with NICAM off and the filter on: the FM carrier through the
+    rotation chain on the filtered video, audio lines from 1 and from
+    7*625+1."""
+    src = NoiseSource(832, 576, seed=5)
+    for block in (0, 7):
+        j = JEncoder(replace(jget_mode("i"), nicam_level=0.0), 16_000_000,
+                     vfilter=True, source=src)
+        t = TEncoder(replace(tget_mode("i"), nicam_level=0.0), 16_000_000,
+                     vfilter=True, source=src, device="cpu")
+        snr, maxerr, ndiff = tc.error_report(t.encode_block(block),
+                                             j.encode_block(block))
+        print(f"fm_add rotation chain, k0={block * 625 + 1}: SNR {snr:.1f} "
+              f"dB, max error {maxerr}, {ndiff} values differ")
+
+
+def nicam() -> None:
+    """signs_device against hacktv_tpu's (jitted) on seeded PCM at the
+    one-frame block's shapes, and the whole NICAM contribution: Encoder
+    "i" with FM off against the JAX encoder."""
+    t = TEncoder("i", 16_000_000, device="cpu")
+    tst = t.nicam_dev_statics
+    jst = jnd.make_dev_statics(tst.nf_max, tst.L, tst.spp)
+    jfn = jax.jit(functools.partial(jnd.signs_device, jst))
+    bad = [0, 0, 0]
+    for seed in range(8):
+        pcm = np.random.default_rng(seed).integers(
+            -32768, 32768, (tst.nf_max * 32 + 82, 2)).astype(np.int16)
+        ref = jfn(jnp.asarray(pcm), jnp.int32(seed % 4), jnp.int32(seed),
+                  jnp.int32(500), jnp.int32(40 * 364))
+        got = tnd.signs_device(tst, torch.as_tensor(pcm),
+                               torch.tensor(seed % 4, dtype=torch.int32),
+                               seed, 500, 40 * 364)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            bad[i] += int(np.count_nonzero(a.numpy() != np.asarray(b)))
+    print(f"NICAM signs_device, 8 PCM seeds: signs_i {bad[0]}, signs_q "
+          f"{bad[1]} of {8 * tst.L}, dsym {bad[2]} of 8 differ")
+    src = NoiseSource(832, 576, seed=7)
+    j = JEncoder(replace(jget_mode("i"), fm_mono_level=0.0), 16_000_000,
+                 source=src)
+    t = TEncoder(replace(tget_mode("i"), fm_mono_level=0.0), 16_000_000,
+                 source=src, device="cpu")
+    for b in range(2):
+        snr, maxerr, ndiff = tc.error_report(t.encode_block(b),
+                                             j.encode_block(b))
+        print(f"NICAM contribution (PAL-I, FM off) block {b}: SNR "
+              f"{snr:.1f} dB, max error {maxerr}, {ndiff} values differ")
+
+
 def encoders() -> None:
-    for mode, rate, vf in (("m", 13_500_000, True), ("m", 13_500_000, False),
-                           ("pal", 16_000_000, True),
-                           ("pal", 16_000_000, False)):
+    for mode, rate, kw in (
+            ("m", 13_500_000, dict(vfilter=True)), ("m", 13_500_000, {}),
+            ("pal", 16_000_000, dict(vfilter=True)), ("pal", 16_000_000, {}),
+            ("i", 16_000_000, {}), ("i", 16_000_000, dict(vfilter=True)),
+            ("i", 16_000_000, dict(fm_direct_trig=True)),
+            ("g", 16_000_000, {})):
         probe = TEncoder(mode, rate, device="cpu")
         src = NoiseSource(probe.params.active_width, probe.conf.active_lines,
                           seed=7)
-        j = JEncoder(mode, rate, vfilter=vf, source=src)
-        t = TEncoder(mode, rate, vfilter=vf, source=src, device="cpu")
+        j = JEncoder(mode, rate, source=src, **kw)
+        t = TEncoder(mode, rate, source=src, device="cpu", **kw)
         for b in range(2):
             snr, maxerr, ndiff = tc.error_report(t.encode_block(b),
                                                  j.encode_block(b))
-            print(f"Encoder({mode!r}, {rate}, vfilter={vf}) block {b}: "
-                  f"SNR {snr:.1f} dB, max error {maxerr}, {ndiff} samples "
+            print(f"Encoder({mode!r}, {rate}, {kw}) block {b}: SNR "
+                  f"{snr:.1f} dB, max error {maxerr}, {ndiff} values "
                   f"differ")
 
 
@@ -151,4 +210,6 @@ if __name__ == "__main__":
     fir_rule()
     sincosf(args.sincosf)
     fm_flips()
+    fm_chain()
+    nicam()
     encoders()
