@@ -5,8 +5,10 @@
 
 Paths: m-vsb (Encoder("m", 13.5 MS/s, --filter)), pal-lowpass
 (Encoder("pal", 16 MS/s, --filter)), pal-i (Encoder("i", 16 MS/s), the
-flagship chain with FM and NICAM-728 sound) and pal-i-vsb (the same with
---filter).
+flagship chain with FM and NICAM-728 sound), pal-i-vsb (the same with
+--filter), secam-l-vsb (Encoder("l", 16 MS/s, --filter): SECAM colour, AM
+sound and NICAM) and g-a2 (Encoder("g", 16 MS/s, a2stereo=True): PAL-B/G
+with A2 stereo).
 
 Phases, one line each (any failure exits non-zero before the result):
 
@@ -24,13 +26,19 @@ Phases, one line each (any failure exits non-zero before the result):
      block's shapes against the port's host numpy coder, and nicam_add
      on the card against the same call on the CPU: byte-equal required;
      the card time of each;
-  5. end to end: each path at 64 frames per block, seeded noise for
+  5. secam: SECAM-L's chroma program (device_chroma_carrier), luma
+     band-reject and carrier add (render) and AM carrier (am_add) at the
+     64-frame block's shapes on the card against the same calls on the
+     CPU: byte-equal required; the card time of each, and the host time
+     of one block's SECAM metadata (block_meta, built once per key);
+  6. end to end: each path at 64 frames per block, seeded noise for
      sound: 2 warm-up and 8 timed blocks (the host's enqueue time and the
      block time to the card's end), with every kernel's launch count set
      to 0 just before a path and read just after;
-  6. the card against the port's CPU path, one-frame blocks 0-1 of each
-     path: byte-identical required;
-  7. the command line, 4 frames of -m i to a file.
+  7. the card against the port's CPU path, one-frame blocks 0-2 of each
+     path and of SECAM composite, SECAM-L, 405-line system A (AM sound)
+     and NTSC-M with A2 at 13.5135 MS/s: byte-identical required;
+  8. the command line, 4 frames of -m i to a file.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -56,10 +64,20 @@ F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 FPB = 64                       # frames per block on the main path
 TIMED_BLOCKS = 8
 WARM_BLOCKS = 2
-PATHS = {"m-vsb": ("m", 13_500_000, True),
-         "pal-lowpass": ("pal", 16_000_000, True),
-         "pal-i": ("i", 16_000_000, False),
-         "pal-i-vsb": ("i", 16_000_000, True)}
+# path: (mode, sample rate, --filter, other Encoder arguments)
+PATHS = {"m-vsb": ("m", 13_500_000, True, {}),
+         "pal-lowpass": ("pal", 16_000_000, True, {}),
+         "pal-i": ("i", 16_000_000, False, {}),
+         "pal-i-vsb": ("i", 16_000_000, True, {}),
+         "secam-l-vsb": ("l", 16_000_000, True, {}),
+         "g-a2": ("g", 16_000_000, False, {"a2stereo": True})}
+# the card against the CPU: the paths and these
+CPU_PATHS = {**PATHS,
+             "secam": ("secam", 16_000_000, False, {}),
+             "l": ("l", 16_000_000, False, {}),
+             "a": ("a", 16_000_000, False, {}),
+             "m-a2": ("m", 13_513_500, False, {"a2stereo": True})}
+CPU_BLOCKS = 3                 # one-frame blocks 0-2: SECAM's carry twice
 
 
 def fail(msg: str) -> None:
@@ -167,7 +185,7 @@ def kernel_phase(sf, VideoParams, get_mode) -> list:
     from dataclasses import replace
     out = []
     gen = torch.Generator(device="cuda").manual_seed(2024)
-    for path, (mode, rate, vfilter) in PATHS.items():
+    for path, (mode, rate, vfilter, _) in PATHS.items():
         if not vfilter:
             continue
         p = VideoParams.create(replace(get_mode(mode), vfilter=True), rate, 0)
@@ -308,12 +326,65 @@ def nicam_phase(Encoder) -> None:
     torch.cuda.empty_cache()
 
 
+def secam_phase(Encoder) -> None:
+    """SECAM-L's own layers at the 64-frame block's shapes (block 1, the
+    test card, a carried z, seeded sound and video): the chroma program
+    (device_chroma_carrier), the luma band-reject and carrier add
+    (render) and the AM carrier (am_add), on the card and on the CPU:
+    byte-equal required; then the card time of each (CUDA events)."""
+    from hacktv_tpu_torch.audio import synth
+    from hacktv_tpu_torch.video import raster, secam
+    res, ms = {}, {}
+    for d in ("cuda", "cpu"):
+        e = Encoder("l", 16_000_000, frames_per_block=FPB, device=d)
+        p = e.params
+        nl = FPB * p.lines
+        t = time.perf_counter()
+        nm = secam.block_meta(p, nl - 1, nl + 2, nl, e.vframe_y,
+                              e.source.height)
+        # the host's build of one new metadata key (a loop over the lines)
+        meta_s = time.perf_counter() - t
+        _, u, v = raster.rgb_to_yuv_host(p, e.source.read_video(0), True)
+        meta = secam.meta_to_device(nm, d)
+        chroma = (e.secam, meta, torch.as_tensor(u, device=d),
+                  torch.as_tensor(v, device=d),
+                  torch.tensor(-1234.5, device=d))
+        add, z = secam.device_chroma_carrier(*chroma)
+        rng = np.random.default_rng(12)
+        video = torch.as_tensor(rng.integers(-9000, 23000, (
+            nl + 2, p.width)).astype(np.float32), device=d)
+        rendered = secam.render(e.secam, video, add, meta)
+        am = {k: torch.as_tensor(np.ascontiguousarray(a), device=d)
+              for k, a in e.audio.am_block(e.audio.am_mono, 1, nl).items()}
+        am_args = (e.am_statics, video[1:nl + 1], video[:nl],
+                   am["seg_val"], am["seg_col"], am["c0"], am["s0"])
+        ai, aq = synth.am_add(*am_args)
+        res[d] = [t.cpu().numpy() for t in (add, z, rendered, ai, aq)]
+        if d == "cuda":
+            ms["device_chroma_carrier"] = cuda_ms(
+                lambda: secam.device_chroma_carrier(*chroma), 5)
+            ms["render"] = cuda_ms(
+                lambda: secam.render(e.secam, video, add, meta), 5)
+            ms["am_add"] = cuda_ms(lambda: synth.am_add(*am_args), 5)
+        del add, z, chroma, video, rendered, am, am_args, ai, aq
+    diff = {name: int(np.count_nonzero(a != b)) for name, a, b in zip(
+        ("carrier", "z", "render", "am_i", "am_q"), res["cuda"], res["cpu"])}
+    phase("secam", rows=res["cpu"][0].shape[0], width=res["cpu"][0].shape[1],
+          card_vs_cpu_differing=json.dumps(diff).replace(" ", ""),
+          **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},
+          block_meta_s=f"{meta_s:.3f}", card=json.dumps(CARD["smi"]))
+    if any(diff.values()):
+        fail("secam: the card differs from the CPU path")
+    del res
+    torch.cuda.empty_cache()
+
+
 def e2e_phase(Encoder, NoiseSource, sf, path: str, profile_dir) -> dict:
-    mode, rate, vfilter = PATHS[path]
-    probe = Encoder(mode, rate, vfilter=vfilter, device="cpu")
+    mode, rate, vfilter, kw = PATHS[path]
+    probe = Encoder(mode, rate, vfilter=vfilter, device="cpu", **kw)
     src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
     enc = Encoder(mode, rate, vfilter=vfilter, frames_per_block=FPB,
-                  source=src, device="cuda")
+                  source=src, device="cuda", **kw)
     counts = (sf.fir_cplx, sf.fir_real)
     for c in counts:
         c.launches = 0
@@ -384,12 +455,14 @@ def profile_block(enc, b, path, out_dir):
 
 
 def cpu_compare_phase(Encoder, NoiseSource) -> None:
-    for path, (mode, rate, vfilter) in PATHS.items():
-        probe = Encoder(mode, rate, vfilter=vfilter, device="cpu")
+    for path, (mode, rate, vfilter, kw) in CPU_PATHS.items():
+        probe = Encoder(mode, rate, vfilter=vfilter, device="cpu", **kw)
         src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
-        g = Encoder(mode, rate, vfilter=vfilter, source=src, device="cuda")
-        c = Encoder(mode, rate, vfilter=vfilter, source=src, device="cpu")
-        for b in range(2):
+        g = Encoder(mode, rate, vfilter=vfilter, source=src, device="cuda",
+                    **kw)
+        c = Encoder(mode, rate, vfilter=vfilter, source=src, device="cpu",
+                    **kw)
+        for b in range(CPU_BLOCKS):
             a = g.encode_block(b).astype(np.int64)
             r = c.encode_block(b).astype(np.int64)
             if a.shape != r.shape:
@@ -448,6 +521,7 @@ def main() -> int:
     sass_mix(cuda_build.lib_path("stream_fir"))
     recs = kernel_phase(sf, VideoParams, get_mode)
     nicam_phase(Encoder)
+    secam_phase(Encoder)
     launches = {}
     for path in PATHS:
         launches[path] = e2e_phase(Encoder, NoiseSource, sf, path,

@@ -1,14 +1,16 @@
 """Host-side audio pipeline: the 32 kHz audio-rate bookkeeping of the FM
-mono carrier and of NICAM-728.
+carriers (mono and the A2 second carrier), the AM carrier and NICAM-728.
 
-Port of the FM and NICAM parts of hacktv_tpu/audio/chain.py.  The
-reference processes audio one output sample at a time inside the video
-loop (src/video.c:3261-3450).  Here the host fetches the volume-scaled PCM
-window of each block and computes the per-class window offsets and carrier
-tables (numpy, exact integer arithmetic on the absolute output-sample
-index); the FM channel mix, limiter and phase prefix sums, and the NICAM
-frame encoder, run on the device (audio/synth.py, audio/nicam_dev.py).
-Stereo (A2), AM and DANCE carriers are not ported yet and raise.
+Port of hacktv_tpu/audio/chain.py without DANCE and the Syster audio
+inversion.  The reference processes audio one output sample at a time
+inside the video loop (src/video.c:3261-3450).  Here the host fetches the
+volume-scaled PCM window of each block and computes the per-class window
+offsets and carrier tables (numpy, exact integer arithmetic on the
+absolute output-sample index).  The FM mono carrier's channel mix, limiter
+and phase prefix sums, and the NICAM frame encoder, run on the device
+(audio/synth.py, audio/nicam_dev.py); the A2 carriers' held values (two
+limiters and the 0.95 scale), the AM gain segments and the A2 pilot's
+phase bases are computed here, as the JAX package does.  DANCE raises.
 """
 
 from __future__ import annotations
@@ -28,6 +30,9 @@ AUDIO_RATE = 32000
 INT16_MAX = 32767
 
 _LIM_HIST = 256      # audio samples of history for limiter/J17 recompute
+# longest A2 pilot period (output samples) held as an exact prefix-sum
+# table (int64, 8 bytes a sample)
+_PILOT_TABLE_MAX = 1 << 23
 
 
 @dataclass
@@ -41,10 +46,14 @@ class FMCarrier:
     den: int = 0
     kd: float = 0.0           # rad per (sample * unit)
     eps: float = 0.0          # deterministic phase lag (see below)
+    channel: str = "mono"     # audio source: mono | right | a2m (M - R)
+    a2_scale: bool = False    # 0.95 post-limiter scale (A2 modes)
+    limiter2: Limiter | None = None   # mono-channel limiter (A2 System M)
 
     @classmethod
     def create(cls, frequency: float, deviation: float, level: float,
-               preemph: Preemph, sample_rate: int) -> "FMCarrier":
+               preemph: Preemph, sample_rate: int, channel: str = "mono",
+               a2_scale: bool = False) -> "FMCarrier":
         from fractions import Fraction
         lim = None
         if preemph != Preemph.NONE:
@@ -54,7 +63,8 @@ class FMCarrier:
                    level_int=int(round(INT16_MAX * level)), limiter=lim,
                    num=fr.numerator, den=fr.denominator,
                    kd=2.0 * np.pi * deviation / (sample_rate * INT16_MAX),
-                   eps=_phase_bias(frequency, deviation, sample_rate))
+                   eps=_phase_bias(frequency, deviation, sample_rate),
+                   channel=channel, a2_scale=a2_scale)
 
 
 def _phase_bias(frequency: float, deviation: float,
@@ -80,10 +90,10 @@ def _phase_bias(frequency: float, deviation: float,
 
 
 class AudioChain:
-    """Per-block audio computation for one video mode (FM mono)."""
+    """Per-block audio computation for one video mode."""
 
     def __init__(self, conf: VidConfig, sample_rate: int, width: int,
-                 source):
+                 source, a2stereo: bool = False):
         self.conf = conf
         self.S = int(sample_rate)
         self.A = AUDIO_RATE
@@ -91,11 +101,8 @@ class AudioChain:
         self.source = source
         self.volume_int = int(conf.volume * 256 + 0.5)
 
-        for level, carrier, what in (
-                (conf.am_audio_level, conf.am_mono_carrier, "AM audio"),
-                (conf.dance_level, conf.dance_carrier, "DANCE")):
-            if level > 0 and carrier != 0:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if conf.dance_level > 0 and conf.dance_carrier != 0:
+            raise NotImplementedError("DANCE is not ported yet")
 
         slevel = 1.0 if conf.modulation == Modulation.FM else conf.level
 
@@ -103,10 +110,56 @@ class AudioChain:
         if conf.fm_mono_level > 0 and conf.fm_mono_carrier != 0:
             self.fm_mono = FMCarrier.create(
                 conf.fm_mono_carrier, conf.fm_mono_deviation,
-                conf.fm_mono_level * slevel, conf.fm_mono_preemph, self.S)
+                conf.fm_mono_level * slevel, conf.fm_mono_preemph, self.S,
+                a2_scale=a2stereo)
+
+        # Zweikanalton / A2 second carrier + pilot (src/video.c:4375-4401)
+        self.fm_right = None
+        self.a2_pilot = None
+        if a2stereo and self.fm_mono is not None:
+            system_m = conf.fm_mono_carrier == 4_500_000
+            self.fm_right = FMCarrier.create(
+                conf.fm_mono_carrier + (224_213 if system_m else 242_187.5),
+                conf.fm_mono_deviation,
+                conf.fm_mono_level * 0.446684 * slevel,   # -7 dB
+                conf.fm_mono_preemph, self.S,
+                channel="a2m" if system_m else "right", a2_scale=True)
+            if system_m:
+                self.fm_right.limiter2 = Limiter(
+                    INT16_MAX, 21, taps_for(conf.fm_mono_preemph),
+                    FLAT_TAPS)
+            from fractions import Fraction
+            f_sig = 149.9 if system_m else 117.5
+            f_pil = 55.06993e3 if system_m else 54.6875e3
+            r_sig = Fraction(f_sig).limit_denominator(1 << 20) / self.S
+            r_pil = Fraction(f_pil).limit_denominator(1 << 20) / self.S
+            self.a2_pilot = {
+                "num1": r_sig.numerator, "den1": r_sig.denominator,
+                "num2": r_pil.numerator, "den2": r_pil.denominator,
+                "level2": round(INT16_MAX * 0.05),
+            }
+            self._pilot_anchor = (0, 0.0)   # (sample index, cum sum)
+            # the pilot value is periodic in the output sample with the
+            # period T of both tones; where T is short, its running sums
+            # come from one exact table instead of every sample's cos
+            T = math.lcm(r_sig.denominator, r_pil.denominator)
+            self._pilot_prefix = None
+            if T <= _PILOT_TABLE_MAX:
+                self._pilot_prefix = np.concatenate([[0], np.cumsum(
+                    self.pilot_s2(0, T).astype(np.int64))])
+
+        self.am_mono = None
+        if conf.am_audio_level > 0 and conf.am_mono_carrier != 0:
+            # AM audio carrier (src/video.c:2343-2378, 3426-3429): no
+            # limiter/pre-emphasis, half-modulation by (s+32768)/2
+            self.am_mono = FMCarrier.create(
+                conf.am_mono_carrier, 0.0,
+                conf.am_audio_level * slevel, Preemph.NONE, self.S)
 
         self.nicam = None
-        if conf.nicam_level > 0 and conf.nicam_carrier != 0:
+        # A2 disables NICAM (src/video.c:4399-4401)
+        if conf.nicam_level > 0 and conf.nicam_carrier != 0 \
+                and not a2stereo:
             self.nicam = {
                 "timing": nicam_mod.SymbolTiming.create(self.S),
                 "taps": nicam_mod.mod_taps(self.S, conf.nicam_beta,
@@ -121,6 +174,11 @@ class AudioChain:
 
         # per-carrier: up to two most-recent _held_values windows
         self._held_cache: dict = {}
+        # per-carrier deviation-phase anchors of the host-held paths:
+        # (audio index, phase mod 2pi) for fm_block, and (audio index,
+        # X mod M) for fm_compact_block
+        self._dev_anchor: dict = {}
+        self._int_anchor: dict = {}
 
     # -- audio fetch ----------------------------------------------------
     def _pcm(self, start: int, count: int) -> np.ndarray:
@@ -355,23 +413,266 @@ class AudioChain:
 
     def _held_values(self, carrier: FMCarrier, i_lo: int, i_hi: int
                      ) -> np.ndarray:
-        """Post-limiter held FM mono sample for audio indices
-        [i_lo, i_hi) (index -1 and below = 0), on the host."""
+        """Post-limiter held FM sample for audio indices [i_lo, i_hi)
+        (index -1 and below = 0), on the host."""
         cached = self._held_cache.get(id(carrier), ())
         for lo, hi, vals in cached:
             if lo <= i_lo and i_hi <= hi:
                 return vals[i_lo - lo: i_hi - lo]
         h0 = i_lo - _LIM_HIST
         pcm = self._pcm(h0, i_hi - h0)
-        v = np.trunc((pcm[:, 0] + pcm[:, 1]) / 2).astype(np.int64)
-        if carrier.limiter is not None:
-            v = carrier.limiter.process(v)
-        vals = v[i_lo - h0: i_hi - h0].copy()
+
+        def channel_vals(ch: str, limiter) -> np.ndarray:
+            if ch == "mono":
+                v = np.trunc((pcm[:, 0] + pcm[:, 1]) / 2).astype(np.int64)
+            else:
+                v = pcm[:, 1].copy()
+            if limiter is not None:
+                v = limiter.process(v)
+            if carrier.a2_scale:
+                # src/video.c:3328,3350: int16 = sample * 0.95 truncates
+                # toward zero
+                v = np.trunc(v * 0.95).astype(np.int64)
+            return v
+
+        if carrier.channel == "a2m":
+            # System M A2 second carrier carries L-R as mono-right
+            # (src/video.c:3410-3414)
+            vals = (channel_vals("mono", carrier.limiter2)
+                    - channel_vals("right", carrier.limiter))
+        else:
+            vals = channel_vals(carrier.channel, carrier.limiter)
+        vals = vals[i_lo - h0: i_hi - h0].copy()
         # indices < 0: initial fm.sample == 0 before the first fetch
         if i_lo < 0:
             vals[: -i_lo] = 0
         self._held_cache[id(carrier)] = ((i_lo, i_hi, vals),) + cached[:1]
         return vals
+
+    # -- host-held FM, AM and the A2 pilot ---------------------------------
+    def hold_start(self, i) -> np.ndarray:
+        """First output sample at which audio pair i is held:
+        ceil(S*(i+1)/A) - 1."""
+        i = np.asarray(i, dtype=np.int64)
+        return _ceil_div(self.S * (i + 1), self.A) - 1
+
+    def _seg_pattern(self, k0: int, nlines: int):
+        """Per-(line, seg) hold-value indices and segment start columns
+        for lines [k0, k0+nlines), exploiting the line/audio-rate
+        periodicity: the event pattern repeats every P_a lines offset by
+        a constant pair count, so only [P_a, nseg] is computed exactly
+        and the block expands by broadcast adds.
+
+        Returns (vidx [nlines, nseg] int64, seg_col [nlines, nseg] i32).
+        Negative stream lines clamp to line 0 like the reference's
+        warm-up swallowing."""
+        W, S, A = self.W, self.S, self.A
+        j = np.arange(self.nseg, dtype=np.int64)
+        g = math.gcd(W * A, S)
+        q, d = (W * A) // g, S // g
+        P_a = d // math.gcd(q % d if q % d else d, d)
+        k0c = max(k0, 0)
+
+        if P_a <= max(nlines, 256) and k0 >= 0:
+            G_ = -(-nlines // P_a)
+            b = np.arange(P_a, dtype=np.int64)
+            m0 = (k0c + b) * q // d + 1
+            vidx0 = m0[:, None] - 2 + j[None, :]
+            ev0 = _ceil_div(S * (m0[:, None] - 1 + j[None, :]), A) - 1
+            col0 = ev0 - ((k0c + b) * W)[:, None]
+            col0[:, 0] = np.minimum(col0[:, 0], 0)
+            m_step = P_a * q // d
+            gidx = np.arange(G_, dtype=np.int64)[:, None, None]
+            vidx = (vidx0[None, :, :] + gidx * m_step
+                    ).reshape(-1, self.nseg)[:nlines]
+            seg_col = np.broadcast_to(
+                col0[None, :, :].astype(np.int32),
+                (G_, P_a, self.nseg)).reshape(-1, self.nseg)[:nlines]
+            return vidx, seg_col
+
+        ks = np.maximum(np.arange(k0, k0 + nlines, dtype=np.int64), 0)
+        n_line = ks * W
+        m_first = n_line * A // S + 1
+        vidx = m_first[:, None] - 2 + j[None, :]
+        ev = _ceil_div(S * (m_first[:, None] - 1 + j[None, :]), A) - 1
+        seg_col = ev - n_line[:, None]
+        seg_col[:, 0] = np.minimum(seg_col[:, 0], 0)
+        return vidx, seg_col.astype(np.int32)
+
+    def fm_block(self, carrier: FMCarrier, k0: int, nlines: int) -> dict:
+        """Host-assembled FM block, for carriers whose phase modulus is
+        not exact (fm_win_config gives None): per-line segment values,
+        f32 phase bases mod 2pi at each segment start, segment columns
+        and the per-line carrier rotation, for lines [k0, k0+nlines)."""
+        vidx, seg_col = self._seg_pattern(k0, nlines)
+        i_lo = int(vidx.min())
+        i_hi = int(vidx.max()) + 1
+
+        held = self._held_values(carrier, i_lo, i_hi)
+        idx = np.clip(vidx - i_lo, 0, None)
+        seg_val = held.astype(np.float32)[idx]
+
+        # deviation phase base at each segment start:
+        # Phi(seg) = kd * sum_{i' < vidx} s_{i'} * len_{i'}
+        base = self._dev_phase_bases(carrier, i_lo, i_hi, held)
+        seg_base = (base % (2.0 * np.pi)).astype(np.float32)[idx]
+
+        # advance the anchor so that later blocks do not rescan: the next
+        # block's i_lo is always >= i_hi - 8 (the halo lines overlap)
+        last = max(i_lo, i_hi - 8)
+        self._dev_anchor[id(carrier)] = (
+            last, float(base[last - i_lo] % (2.0 * np.pi)))
+
+        c0, s0 = self._carrier_rot(carrier.num, carrier.den, k0, nlines)
+        return dict(seg_val=seg_val, seg_base=seg_base, seg_col=seg_col,
+                    ctab=c0, stab=s0)
+
+    def _dev_phase_bases(self, carrier: FMCarrier, i_lo: int, i_hi: int,
+                         held: np.ndarray) -> np.ndarray:
+        """Phi at the start of each hold period for indices [i_lo, i_hi):
+        cumulative kd * s * len over all earlier hold periods, measured
+        from the stream start (mod 2pi, anchored)."""
+        ai, aphi = self._dev_anchor.get(id(carrier), (0, 0.0))
+        if ai > i_lo:
+            # recompute from stream start (seek backwards)
+            ai, aphi = -1, 0.0
+        if ai < i_lo:
+            idx = np.arange(ai, i_lo, dtype=np.int64)
+            lens = self.hold_start(idx + 1) - self.hold_start(idx)
+            vals = self._held_values(carrier, ai, i_lo)
+            aphi = (aphi + carrier.kd * float(np.sum(vals * lens))) \
+                % (2.0 * np.pi)
+        idx = np.arange(i_lo, i_hi, dtype=np.int64)
+        lens = self.hold_start(idx + 1) - self.hold_start(idx)
+        csum = np.concatenate([[0], np.cumsum(held * lens)[:-1]])
+        return aphi + carrier.kd * csum
+
+    def fm_compact_block(self, carrier: FMCarrier, k0: int, nlines: int,
+                         fw) -> dict:
+        """Host side of a device-assembled FM block whose held values are
+        computed here (the A2 carriers): held values (int16), the exact
+        int32 phase anchor, per-class window offsets and per-period
+        carrier tables, as synth.fm_prepare takes them."""
+        W, S, A = self.W, self.S, self.A
+        g = math.gcd(W * A, S)
+        q, d = (W * A) // g, S // g
+        P_a, m_step, nseg = fw.P_a, fw.m_step, self.nseg
+        G = -(-nlines // P_a)
+        j = np.arange(nseg, dtype=np.int64)
+
+        b = np.arange(P_a, dtype=np.int64)
+        m0 = (k0 + b) * q // d + 1
+        vfirst = m0 - 2
+        ev0 = _ceil_div(S * (m0[:, None] - 1 + j[None, :]), A) - 1
+        col0 = (ev0 - ((k0 + b) * W)[:, None])
+        col0[:, 0] = np.minimum(col0[:, 0], 0)
+
+        i0 = int(vfirst.min())
+        i_hi = int(vfirst.max()) + (G - 1) * m_step + nseg
+        held = self._held_values(carrier, i0, i_hi)
+        n = i_hi - i0
+        assert n <= fw.NH, (n, fw.NH)
+        hbuf = np.zeros(fw.NH, dtype=np.int16)
+        hbuf[:n] = held
+
+        xa = self._fm_int_anchor(carrier, i0, held, i_hi, fw.M)
+
+        start0 = (vfirst - i0).astype(np.int64)
+        c0, s0 = self._carrier_tabs(carrier, k0, nlines)
+        return dict(held=hbuf, xa=xa,
+                    lens_off=i0 % (A // math.gcd(S, A)),
+                    offq=(start0 // m_step).astype(np.int32),
+                    offr=(start0 % m_step).astype(np.int32),
+                    col0=col0.astype(np.int32), ctab=c0, stab=s0)
+
+    def _fm_int_anchor(self, carrier: FMCarrier, i0: int,
+                       held: np.ndarray, i_hi: int, M: int) -> int:
+        """Exact integer deviation-phase accumulator X mod M at hold
+        index i0, chained block to block (negative indices contribute 0:
+        fm.sample is 0 before the first audio fetch)."""
+        key = id(carrier)
+        ai, xa = self._int_anchor.get(key, (i0 if i0 <= 0 else 0, 0))
+        if ai > i_hi - 1:
+            ai, xa = (min(i0, 0), 0)
+        if ai > i0:
+            # subtract the overlap using this block's held values
+            w = held[: ai - i0].astype(np.int64)
+            xa = (xa - int(np.sum(w * self._lens_for(i0, ai - i0)))) % M
+        elif ai < i0:
+            w = self._held_values(carrier, ai, i0).astype(np.int64)
+            xa = (xa + int(np.sum(w * self._lens_for(ai, i0 - ai)))) % M
+        # advance the anchor near the end of this window
+        last = max(i0, i_hi - 8)
+        w = held[: last - i0].astype(np.int64)
+        nxt = (xa + int(np.sum(w * self._lens_for(i0, last - i0)))) % M
+        self._int_anchor[key] = (last, nxt)
+        return xa
+
+    def am_block(self, carrier: FMCarrier, k0: int, nlines: int) -> dict:
+        """Zero-order-hold AM gain segments: value (s+32768)/2 per held
+        sample (src/video.c:2359-2366), plus the carrier rotation."""
+        vidx, seg_col = self._seg_pattern(k0, nlines)
+        i_lo, i_hi = int(vidx.min()), int(vidx.max()) + 1
+        pcm = self._pcm(i_lo, i_hi - i_lo)
+        mono = np.trunc((pcm[:, 0] + pcm[:, 1]) / 2).astype(np.int64)
+        if i_lo < 0:
+            mono[: -i_lo] = 0
+        s2 = ((mono + 32768) // 2).astype(np.float32)
+        seg_val = s2[np.clip(vidx - i_lo, 0, None)]
+        c0, s0 = self._carrier_rot(carrier.num, carrier.den, k0, nlines)
+        return dict(seg_val=seg_val, seg_col=seg_col, c0=c0, s0=s0)
+
+    def pilot_s2(self, n0: int, count: int) -> np.ndarray:
+        """A2 pilot/mode-signal contribution s2 for absolute output
+        samples [n0, n0+count): the 117.5/149.9 Hz mode tone AM-modulating
+        the ~54.7 kHz pilot, mirroring the reference's integer chain
+        (src/video.c:2359-2378, 3404-3421)."""
+        ap = self.a2_pilot
+        n = np.arange(n0 + 1, n0 + 1 + count, dtype=np.int64)
+        th1 = 2 * np.pi * ((n * ap["num1"]) % ap["den1"]) / ap["den1"]
+        th2 = 2 * np.pi * ((n * ap["num2"]) % ap["den2"]) / ap["den2"]
+        p1 = np.clip(np.floor(np.cos(th1) * 32768.0), -32768, 32767)
+        s1 = np.floor(np.floor(p1 / 2) * 32767.0 / 32768.0)
+        u = np.floor((s1 + 32768.0) / 2)
+        p2 = np.clip(np.floor(np.cos(th2) * 32768.0), -32768, 32767)
+        return np.floor(np.floor(p2 * u / 32768.0) * ap["level2"]
+                        / 32768.0)
+
+    def pilot_block(self, k0: int, nlines: int) -> dict:
+        """Per-line pilot-sum phase bases + pilot carrier rotations for
+        lines [k0, k0+nlines)."""
+        ap = self.a2_pilot
+        W = self.W
+        n_start = max(k0, 0) * W
+        n_end = (max(k0, 0) + nlines) * W
+        line_n = n_start + np.arange(nlines, dtype=np.int64) * W
+        tab = self._pilot_prefix
+        if tab is not None:
+            # the sum over [0, n): whole periods and the table; every
+            # value is an integer, so these int64 sums are the f64
+            # running sums below exactly
+            T = len(tab) - 1
+            bases = ((line_n // T) * tab[-1] + tab[line_n % T]).astype(
+                np.float64)
+        else:
+            na, cum = self._pilot_anchor
+            if na > n_start:
+                na, cum = 0, 0.0
+            s2 = self.pilot_s2(na, n_end - na)
+            csum = np.concatenate([[0.0], np.cumsum(s2)]) + cum
+            bases = csum[line_n - na]
+            self._pilot_anchor = (n_end, float(csum[-1]))
+
+        kd = self.fm_right.kd
+        out = {"base_phase": ((kd * bases) % (2.0 * np.pi)
+                              ).astype(np.float32)}
+        for tag, num, den in (("1", ap["num1"], ap["den1"]),
+                              ("2", ap["num2"], ap["den2"])):
+            rot = (line_n % den) * num % den
+            ang = 2.0 * np.pi * rot / den
+            out["c" + tag] = np.cos(ang).astype(np.float32)
+            out["s" + tag] = np.sin(ang).astype(np.float32)
+        return out
 
 
 def _ceil_div(a, b):

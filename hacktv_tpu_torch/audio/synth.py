@@ -192,20 +192,27 @@ def _rotation_chain(segA, segB, k, colsf, K: int = 4):
 
 def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
            seg_val: torch.Tensor,   # f32 [B, NSEG]
-           seg_cnt: torch.Tensor,   # f32 [B, NSEG] phase counts in [0, M)
+           seg_cnt: torch.Tensor,   # f32 [B, NSEG] phase counts in [0, M),
+                                    # or phase bases in rad (unit None)
            seg_col: torch.Tensor,   # i32 [B, NSEG]
            ctab: torch.Tensor,      # f32 [P] carrier cos per line, period P
            stab: torch.Tensor,      # f32 [P]
-           unit: float,             # f32(2*pi/M): radians per count
+           unit: float | None,      # f32(2*pi/M): radians per count
+           phi_extra: torch.Tensor | None = None,   # f32 [B, W] extra phase
+           a2: bool = False,
            ):
     """Add one FM carrier to the (I, Q) block [B, W].
 
     The per-column phase is piecewise affine over the hold segments
     (the reference's telescoped f32 sums, looked up per segment).  Where
-    W is a multiple of 128 and `st.direct` is off, cos/sin come from the
-    rotation chain (`_rotation_chain`), else one cos/sin per sample.  Line
-    b's carrier rotation is ctab/stab[b % P].  (The JAX package also has
-    a magnitude-decay term that its encoder never sets.)
+    W is a multiple of 128, `st.direct` is off and there is no extra
+    phase, cos/sin come from the rotation chain (`_rotation_chain`), else
+    one cos/sin per sample.  `phi_extra` (the A2 pilot, a2_pilot_phase)
+    is added to the phase at every sample.  Line b's carrier rotation is
+    ctab/stab[b % P].  With `unit` None, `seg_cnt` holds the phase base of
+    each segment in radians (the host-assembled AudioChain.fm_block).
+    (The JAX package also has a magnitude-decay term that its encoder
+    never sets.)
 
     Bit for bit the JAX encoder on its CPU backend, where fm_prepare,
     fm_add and the rest of the block run in one compiled step: cos/sin
@@ -213,41 +220,72 @@ def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     compiler fuses into the following add or subtract is fused here, in
     f64 where the f32 product is exact (see `fma32`); every other product
     is rounded on its own.  Which products fuse depends on what is
-    compiled together, and so differs between the two branches; a JAX
-    fm_add jitted on its own fuses differently again."""
+    compiled together, read from the object code of the JAX encoder's
+    step for each case; a JAX fm_add jitted on its own fuses differently
+    again.  `a2` marks a step with the A2 second carrier, whose two
+    carriers take their held values from the host.  The cases, as the
+    object code of Encoder("g"/"i", 16 MS/s) and Encoder("m", 13.5 and
+    13.5135 MS/s) with and without A2 has them:
+
+      - segment phase A = cnt*unit + (kd*v)*(1 - c): cnt*unit fused,
+        except for the rotation chain of an A2 step, where segment 0
+        fuses cnt*unit and every later segment (kd*v)*(1 - c); with host
+        phase bases, base + (kd*v)*(1 - c) fuses its product;
+      - direct phase A + Bc*col: fused, except for the A2 second carrier
+        on lines whose width is a multiple of 128, where Bc*col is
+        rounded;
+      - carrier rotation cc = c0*cos_x - s0*sin_x, cs = s0*cos_x +
+        c0*sin_x: the first product fused, except cc beside the rotation
+        chain and both for that A2 second carrier, where the products are
+        rounded."""
     B, W = out_i.shape
     f32 = torch.float32
     colsf = torch.arange(W, dtype=f32, device=out_i.device)[None, :]
     kd = float(np.float32(st.kd))
 
     # affine pieces: phi_j(col) = A_j + B_j*col with
-    # A_j = base_j + kd*v_j*(1 - c_j), B_j = kd*v_j, base_j = cnt_j*unit.
-    # Mirrors XLA's CPU contraction: kd*v, 1 - c and their product are
-    # rounded, and cnt*unit is fused into the add
+    # A_j = base_j + kd*v_j*(1 - c_j), B_j = kd*v_j, base_j = cnt_j*unit
+    # (kd*v and 1 - c rounded; which product fuses: see the docstring)
+    chain = not st.direct and W % 128 == 0 and phi_extra is None
     segB = kd * seg_val
-    segA = fma32(seg_cnt, unit, segB * (1.0 - seg_col.to(f32)))
+    one_c = 1.0 - seg_col.to(f32)
+    if unit is None:
+        segA = fma32(segB, one_c, seg_cnt)
+    elif chain and a2:
+        segA = fma32(segB, one_c, seg_cnt * unit)
+        segA[:, 0] = fma32(seg_cnt[:, 0], unit, segB[:, 0] * one_c[:, 0])
+    else:
+        segA = fma32(seg_cnt, unit, segB * one_c)
 
     cols = torch.arange(W, dtype=torch.int32, device=out_i.device)
     k = torch.searchsorted(seg_col[:, 1:].contiguous(),
                            cols.expand(B, W).contiguous(), right=True)
-    chain = not st.direct and W % 128 == 0
+    # the A2 second carrier at a width of a multiple of 128
+    a2_wide = a2 and phi_extra is not None and W % 128 == 0
     if chain:
         sphi, cphi = _rotation_chain(segA, segB, k, colsf)
     else:
-        # mirrors XLA's CPU contraction: A + Bc*col is one fused step
-        sphi, cphi = _sincosf_glibc(fma32(_telescope(segB, k), colsf,
-                                          _telescope(segA, k)))
+        if a2_wide:
+            phi = _telescope(segA, k) + _telescope(segB, k) * colsf
+        else:
+            phi = fma32(_telescope(segB, k), colsf, _telescope(segA, k))
+        if phi_extra is not None:
+            phi = phi + phi_extra
+        sphi, cphi = _sincosf_glibc(phi)
     del k
 
     # carrier angle theta_c = rot(line) + table(col), over one period of
-    # lines and then tiled.  Mirrors XLA's CPU contraction here and in the
-    # next step: of a*b +- c*d, c*d is rounded and a*b fused into the add,
-    # except cc beside the rotation chain, where both products are rounded
+    # lines and then tiled (the cases in the docstring), then cos/sin of
+    # theta_c + phi: of a*b -+ c*d, c*d is rounded and a*b fused
     c0, s0 = ctab[:, None], stab[:, None]
     cos_x, sin_x = st.cos_x[None, :], st.sin_x[None, :]
-    cc = (c0 * cos_x - s0 * sin_x if chain
-          else fma32(c0, cos_x, -(s0 * sin_x)))
-    cs = fma32(s0, cos_x, c0 * sin_x)
+    if a2_wide:
+        cc = c0 * cos_x - s0 * sin_x
+        cs = s0 * cos_x + c0 * sin_x
+    else:
+        cc = (c0 * cos_x - s0 * sin_x if chain
+              else fma32(c0, cos_x, -(s0 * sin_x)))
+        cs = fma32(s0, cos_x, c0 * sin_x)
 
     # cos/sin(theta_c + phi); cc*cphi and cs*cphi are exact in f64
     cphi = cphi.double()
@@ -275,6 +313,91 @@ def fm_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     add_q = torch.floor(
         torch.clamp(torch.floor(cq * 32768.0), -32768, 32767) * lvl * inv)
     return out_i + add_i, out_q + add_q
+
+
+@dataclass
+class A2Statics:
+    """Static column tables for the A2 pilot chain (the ~54.7 kHz pilot
+    AM-modulated by the 117.5/149.9 Hz mode tone, src/video.c:3404-3421)."""
+    cos1_x: torch.Tensor
+    sin1_x: torch.Tensor
+    cos2_x: torch.Tensor
+    sin2_x: torch.Tensor
+    level2: int
+    kd: float
+
+
+def make_a2_statics(pilot: dict, kd: float, width: int,
+                    device="cuda") -> A2Statics:
+    x = np.arange(1, width + 1, dtype=np.int64)
+    a1 = 2.0 * np.pi * ((x * pilot["num1"]) % pilot["den1"]) / pilot["den1"]
+    a2 = 2.0 * np.pi * ((x * pilot["num2"]) % pilot["den2"]) / pilot["den2"]
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=device)
+    return A2Statics(cos1_x=t(np.cos(a1)), sin1_x=t(np.sin(a1)),
+                     cos2_x=t(np.cos(a2)), sin2_x=t(np.sin(a2)),
+                     level2=pilot["level2"], kd=kd)
+
+
+def a2_pilot_phase(st: A2Statics, c1: torch.Tensor, s1: torch.Tensor,
+                   c2: torch.Tensor, s2: torch.Tensor,
+                   base_phase: torch.Tensor) -> torch.Tensor:
+    """Deviation-phase contribution [B, W] of the A2 pilot: kd * running
+    sum of the per-sample pilot value, with the cross-line carry in
+    `base_phase` (f32 [B]; c1, s1, c2, s2 are the per-line rotations).
+
+    Two bounds make it exact whatever the order of the f32 running sum:
+    every pilot value is an integer with |val| <= level2 = 1,638, so a
+    row of W <= 1,024 columns sums to |sum| < 1.7e6 < 2^24, and every
+    partial sum is an integer that f32 holds; u * (1/32768) only scales
+    by a power of two."""
+    # mirrors XLA's CPU contraction: of a*b - c*d, c*d is rounded and a*b
+    # fused into the subtraction
+    C1 = fma32(c1[:, None], st.cos1_x[None, :], -(s1[:, None] * st.sin1_x))
+    C2 = fma32(c2[:, None], st.cos2_x[None, :], -(s2[:, None] * st.sin2_x))
+    p1 = torch.clamp(torch.floor(C1 * 32768.0), -32768, 32767)
+    s1v = torch.floor(torch.floor(p1 * 0.5) * (32767.0 / 32768.0))
+    u = torch.floor((s1v + 32768.0) * 0.5)
+    p2 = torch.clamp(torch.floor(C2 * 32768.0), -32768, 32767)
+    val = torch.floor(torch.floor(p2 * (u * (1.0 / 32768.0)))
+                      * float(np.float32(st.level2 / 32768.0)))
+    # base + kd * sum, fused
+    return fma32(torch.cumsum(val, dim=1), float(np.float32(st.kd)),
+                 base_phase[:, None].expand_as(val))
+
+
+def am_add(st: FMStatics, out_i: torch.Tensor, out_q: torch.Tensor,
+           seg_val: torch.Tensor,   # f32 [B, NSEG] gain (s+32768)/2
+           seg_col: torch.Tensor,   # i32 [B, NSEG]
+           c0: torch.Tensor,        # f32 [B] carrier rotation per line
+           s0: torch.Tensor):
+    """AM audio carrier (src/video.c:2359-2378): the contribution
+    ((((phase>>16) * s2) >> 15) * level) >> 15, half-modulation.  The
+    gain is constant over each hold segment; its telescoped f32 sum over
+    the segments (the JAX package's form) adds integers below 2^24 and
+    so equals the segment's own value, which is looked up."""
+    B, W = out_i.shape
+    cols = torch.arange(W, dtype=torch.int32, device=out_i.device)
+    k = torch.searchsorted(seg_col[:, 1:].contiguous(),
+                           cols.expand(B, W).contiguous(), right=True)
+    val = torch.gather(seg_val, 1, k)
+    del k
+    # mirrors XLA's CPU contraction: of a*b +- c*d, c*d is rounded and
+    # a*b fused, and the tie-break rotation cc - e*cs, cs + e*cc fuses
+    # its product
+    c0, s0 = c0[:, None], s0[:, None]
+    cos_x, sin_x = st.cos_x[None, :], st.sin_x[None, :]
+    cc = fma32(c0, cos_x, -(s0 * sin_x))
+    cs = fma32(s0, cos_x, c0 * sin_x)
+    if st.eps:
+        e = float(np.float32(st.eps))
+        cc, cs = fma32(cs, -e, cc), fma32(cc, e, cs)
+    lvl = float(st.level_int)
+    inv = 1.0 / 32768.0
+
+    def mix(c):
+        p = torch.clamp(torch.floor(c * 32768.0), -32768, 32767)
+        return torch.floor(torch.floor(p * val * inv) * lvl * inv)
+    return out_i + mix(cc), out_q + mix(cs)
 
 
 def _class_windows(x: torch.Tensor, offq: np.ndarray, offr: np.ndarray,

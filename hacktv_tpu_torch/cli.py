@@ -4,10 +4,11 @@ covers (port of hacktv_tpu/cli.py).
     python -m hacktv_tpu_torch -m i --frames 4 -o out.bin test
 
 writes 4 frames of PAL-I with FM and NICAM-728 sound as interleaved int16
-I/Q.  Accepted: -m MODE, -s RATE, --filter, --noaudio, --nonicam, -t TYPE,
--o FILE, --frames N, --device {cuda,cpu} and the input `test`.  Any other
-switch is refused; modes and options that the port does not cover yet
-raise NotImplementedError.
+I/Q.  Accepted: -m MODE, -s RATE, --filter, --noaudio, --nonicam,
+--a2stereo, --secam-field-id, --secam-field-id-lines N, -t TYPE, -o FILE,
+--frames N, --device {cuda,cpu} and the input `test`.  Any other switch is
+refused; modes and options that the port does not cover yet raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -36,6 +37,10 @@ def _build_parser() -> argparse.ArgumentParser:
     a("--filter", action="store_true", dest="vfilter")
     a("--noaudio", action="store_true")
     a("--nonicam", action="store_true")
+    a("--a2stereo", action="store_true",
+      help="A2 (Zweikanalton) stereo: a second FM sound carrier")
+    a("--secam-field-id", action="store_true")
+    a("--secam-field-id-lines", type=int, default=None)
     a("-t", "--type", default="int16",
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
     a("--frames", type=int, default=0,
@@ -59,6 +64,12 @@ def main(argv=None) -> int:
                        nicam_level=0.0, dance_level=0.0)
     if args.nonicam:
         conf = replace(conf, nicam_level=0.0)
+    if args.secam_field_id:
+        conf = replace(conf, secam_field_id=True)
+    if args.secam_field_id_lines is not None:
+        conf = replace(conf, secam_field_id_lines=args.secam_field_id_lines)
+    if args.a2stereo and conf.mac_mode is not None:
+        raise SystemExit("a2stereo is not available for MAC modes")
 
     # 16 frames per block, or --frames if fewer
     fpb = min(16, args.frames) if args.frames else 16
@@ -66,7 +77,8 @@ def main(argv=None) -> int:
     from .encoder import Encoder
     from .rf.file import FileSink
     enc = Encoder(conf, int(args.samplerate), frames_per_block=fpb,
-                  vfilter=args.vfilter, device=args.device)
+                  vfilter=args.vfilter, a2stereo=args.a2stereo,
+                  device=args.device)
     target = args.output[5:] if args.output.startswith("file:") \
         else args.output
     sink = FileSink(target, args.type, enc.complex_out)

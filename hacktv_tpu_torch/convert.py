@@ -7,9 +7,16 @@ carrier rows or tables), the video filter taps (`VideoParams.vfilter_ctaps`
 or `vfilter_taps`), the FM carrier's column tables (`FMStatics.cos_x`,
 `sin_x`), the FM hold lengths (`FMWin.lens_tiled`), the NICAM pulse
 matrices and carrier LUTs (`NicamStatics.pulse`, `lut_i`, `lut_q`) and the
-NICAM frame encoder's tables (`NicamDevStatics.perm`, `prn`, `taps`).
-`carrier_rows`, a (cos, sin) pair of [P, W] tables, travels stacked as one
-[2, P, W] array.
+NICAM frame encoder's tables (`NicamDevStatics.perm`, `prn`, `taps`) go
+under their field names.  The statics added with SECAM, AM and A2 go
+under "<Encoder attribute>.<field>", the attribute that holds them on the
+JAX Encoder, since several share a field name: `secam_statics.` +
+`luma_taps`, `chroma_taps`, `bell_i`, `bell_q`, `w0_tab`, `_win_q` and the
+device program's constants `r_pow`, `w0_col`, `win_col`, `fid` (the JAX
+package's `_device_consts`); `am_statics.cos_x`, `sin_x`;
+`fm_right_statics.cos_x`, `sin_x`, `fm_right_win.lens_tiled`; and
+`a2_statics.cos1_x`, `sin1_x`, `cos2_x`, `sin2_x`.  `carrier_rows`, a
+(cos, sin) pair of [P, W] tables, travels stacked as one [2, P, W] array.
 
     arrays = statics_to_numpy(enc)          # {name: np.ndarray}
     statics_from_numpy(other_enc, arrays)   # installs them on its device
@@ -27,6 +34,10 @@ RASTER_FIELDS = ("sync_main", "sync_tail", "sync_head", "chroma_taps",
                  "carrier_sin")
 NICAM_FIELDS = ("pulse", "lut_i", "lut_q")
 NICAM_DEV_FIELDS = ("perm", "prn", "taps")
+SECAM_FIELDS = ("luma_taps", "chroma_taps", "bell_i", "bell_q", "w0_tab",
+                "_win_q")
+SECAM_CONST_FIELDS = ("r_pow", "w0_col", "win_col", "fid")
+A2_FIELDS = ("cos1_x", "sin1_x", "cos2_x", "sin2_x")
 
 
 def statics_to_numpy(enc) -> dict:
@@ -48,12 +59,29 @@ def statics_to_numpy(enc) -> dict:
     if enc.fm_statics is not None:
         out["cos_x"] = host(enc.fm_statics.cos_x)
         out["sin_x"] = host(enc.fm_statics.sin_x)
-        out["lens_tiled"] = host(enc.fm_win.lens_tiled)
+        if enc.fm_win is not None:
+            out["lens_tiled"] = host(enc.fm_win.lens_tiled)
     if enc.nicam_statics is not None:
         for f in NICAM_FIELDS:
             out[f] = host(getattr(enc.nicam_statics, f))
         for f in NICAM_DEV_FIELDS:
             out[f] = host(getattr(enc.nicam_dev_statics, f))
+    if enc.secam is not None:
+        for f in SECAM_FIELDS:
+            out["secam_statics." + f] = np.asarray(getattr(enc.secam.st, f))
+        for f in SECAM_CONST_FIELDS:
+            out["secam_statics." + f] = host(getattr(enc.secam, f))
+    if enc.am_statics is not None:
+        out["am_statics.cos_x"] = host(enc.am_statics.cos_x)
+        out["am_statics.sin_x"] = host(enc.am_statics.sin_x)
+    if enc.fm_right_statics is not None:
+        out["fm_right_statics.cos_x"] = host(enc.fm_right_statics.cos_x)
+        out["fm_right_statics.sin_x"] = host(enc.fm_right_statics.sin_x)
+        if enc.fm_right_win is not None:
+            out["fm_right_win.lens_tiled"] = host(
+                enc.fm_right_win.lens_tiled)
+        for f in A2_FIELDS:
+            out["a2_statics." + f] = host(getattr(enc.a2_statics, f))
     return out
 
 
@@ -82,7 +110,26 @@ def statics_from_numpy(enc, arrays: dict) -> None:
     if "cos_x" in arrays:
         enc.fm_statics.cos_x = t(arrays["cos_x"])
         enc.fm_statics.sin_x = t(arrays["sin_x"])
+    if "lens_tiled" in arrays:
         enc.fm_win.lens_tiled = t(arrays["lens_tiled"])
+    if enc.secam is not None:
+        from .video import secam as secam_mod
+        st = dataclasses.replace(enc.secam.st, **{
+            f: np.asarray(arrays["secam_statics." + f])
+            for f in SECAM_FIELDS})
+        enc.secam = secam_mod.to_device(st, dev, consts={
+            f: arrays["secam_statics." + f] for f in SECAM_CONST_FIELDS})
+    for name in ("am_statics", "fm_right_statics"):
+        if name + ".cos_x" in arrays:
+            fs = getattr(enc, name)
+            fs.cos_x = t(arrays[name + ".cos_x"])
+            fs.sin_x = t(arrays[name + ".sin_x"])
+    if "fm_right_win.lens_tiled" in arrays:
+        enc.fm_right_win.lens_tiled = t(arrays["fm_right_win.lens_tiled"])
+    if enc.fm_right_statics is not None:
+        enc.a2_statics = dataclasses.replace(
+            enc.a2_statics,
+            **{f: t(arrays["a2_statics." + f]) for f in A2_FIELDS})
     if "pulse" in arrays:
         enc.nicam_statics = dataclasses.replace(
             enc.nicam_statics, **{f: t(arrays[f]) for f in NICAM_FIELDS})

@@ -1,21 +1,24 @@
 """Top-level encoder: source frames -> block synthesis on the device ->
 int16 samples.
 
-Port of hacktv_tpu/encoder.py for the raster modes with the video filter,
-FM mono sound and NICAM-728 (PAL-I, the flagship chain, and PAL-B/G,
-NTSC-M + VSB `--filter`, PAL/NTSC composite with the low-pass `--filter`,
-and the same modes without the filter).  A block of `frames_per_block`
-whole frames, plus one halo line each side for filter continuity, is
-synthesised as a sequence of tensor ops on one device:
+Port of hacktv_tpu/encoder.py for the raster modes (PAL, NTSC, SECAM and
+monochrome) with the video filter, FM mono and A2 stereo sound, AM sound
+and NICAM-728 (PAL-I, the flagship chain, PAL-B/G, SECAM-L, D/K, NTSC-M +
+VSB `--filter`, the 405-line modes, composite with the low-pass
+`--filter`).  A block of `frames_per_block` whole frames, plus one halo
+line each side for filter continuity, is synthesised as a sequence of
+tensor ops on one device:
 
-    raster (video/raster.py) -> stream FIR (ops/stream_fir.py, the CUDA
-    kernel on a card) -> FM sound carrier (audio/synth.py) -> NICAM
+    raster (video/raster.py) -> SECAM chroma and render (video/secam.py)
+    -> stream FIR (ops/stream_fir.py, the CUDA kernel on a card) -> FM
+    and A2 sound carriers, AM sound (audio/synth.py) -> NICAM
     (audio/nicam_dev.py, audio/synth.py) -> int16
 
 The stream-line counter `k` is the only state: k=0 is the first rendered
 line, (frame 1, line 1), with zero filter history at the stream start.
-The FM phase anchor and the NICAM differential state are device scalars
-chained block to block, so blocks must be encoded in order.
+The FM phase anchor, the NICAM differential state and the SECAM IIR
+state are device scalars chained block to block, so blocks must be
+encoded in order.
 
 Metadata, line tables, taps and the audio window bookkeeping stay host
 numpy.  Options that are not ported yet raise NotImplementedError.
@@ -40,6 +43,7 @@ from .config.standards import (ColourMode, Modulation, OutputType, VidConfig,
                                get_mode)
 from .ops.stream_fir import stream_fir
 from .video import raster
+from .video import secam as secam_mod
 from .video.params import VideoParams
 
 _INDEX_KEYS = ("base", "nxt", "prv", "vy", "al", "ar", "lut_row")
@@ -60,7 +64,8 @@ class Encoder:
                  pixel_rate: int = 0, source=None,
                  frames_per_block: int = 1, vfilter: bool = False,
                  offset: int = 0, devices=None, device="cuda",
-                 fm_direct_trig: bool = False, **unported):
+                 fm_direct_trig: bool = False, a2stereo: bool = False,
+                 secam_exact: bool | None = None, **unported):
         for name, value in unported.items():
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -110,13 +115,36 @@ class Encoder:
 
         self.halo_after = 1
         self.complex_out = conf.output_type == OutputType.COMPLEX
-        self._init_audio()
+        self._init_audio(a2stereo)
+
+        # SECAM chroma (src/video.c:3068-3233) on the device; the IIR's
+        # cross-block carry is an f32 device scalar
+        self.secam = None
+        if conf.colour_mode == ColourMode.SECAM:
+            if secam_exact:
+                raise NotImplementedError(
+                    "secam_exact (the host-exact SECAM chroma through the "
+                    "native runtime) is not ported yet")
+            if conf.secam_field_id:
+                # the field-identification lines' full-span sawtooth takes
+                # the carrier phase past 120 rad, where glibc's sinf/cosf
+                # switch to a reduction that _sincosf_glibc does not have
+                raise NotImplementedError(
+                    "SECAM field-identification lines are not ported yet")
+            self.secam = secam_mod.to_device(secam_mod.make_statics(
+                p, self.vframe_x, source.width), self.device)
+            self._secam_meta_cache: OrderedDict = OrderedDict()
+            self._secam_z = {0: torch.zeros((), dtype=torch.float32,
+                                            device=self.device)}
 
         # Reference output-ring size (src/video.c:3578, 4641-4688): at
         # startup the un-rendered next slots keep width 0 for one ring
         # cycle, so vbidata truncates the forward sync spill of the first
-        # (olines - 1) lines there.  (raster, [vfilter], audio, output)
+        # (olines - 1) lines there.  (raster, [SECAM], [vfilter], audio,
+        # output)
         procs = [(3, False)]
+        if self.secam is not None:
+            procs.append((1, True))
         if self.vf_taps is not None:
             procs.append((2, True))
         procs += [(1, True), (1, False)]
@@ -131,39 +159,57 @@ class Encoder:
         self._rgb_cache: tuple | None = None
         self._fpb_warned = False
 
-    def _init_audio(self):
-        """Audio subcarriers (FM mono, NICAM), added after the video
-        filter (src/video.c:4561)."""
+    def _init_audio(self, a2stereo: bool):
+        """Audio subcarriers (FM mono, the A2 second carrier and pilot,
+        AM, NICAM), added after the video filter (src/video.c:4561)."""
         p = self.out_params
+        dev = self.device
         self.audio = AudioChain(self.conf, p.sample_rate, p.width,
-                                self.source)
+                                self.source, a2stereo=a2stereo)
         nlines = self.frames_per_block * p.lines
+        nseg = self.audio.nseg
         self.fm_statics = None
         self.fm_win = None
         self.fm_dev_held = False
         c = self.audio.fm_mono
         if c is not None:
             self.fm_statics = audio_synth.make_fm_statics(
-                c.num, c.den, c.level_int, c.kd, p.width, self.audio.nseg,
-                c.eps, device=self.device)
+                c.num, c.den, c.level_int, c.kd, p.width, nseg, c.eps,
+                device=dev)
             self.fm_statics.direct = self._fm_direct
-            self.fm_win = self.audio.fm_win_config(c, nlines, self.device)
-            if self.fm_win is None:
-                raise NotImplementedError(
-                    "the host-assembled FM block (sample rates whose FM "
-                    "phase modulus is not exact) is not ported yet")
-            # channel mix + limiter + held values run on the device; the
-            # int32 phase anchor is a device scalar chained block to block
-            self.fm_dev_held = True
-            self._fm_xa: dict = {0: [None, torch.zeros(
-                (), dtype=torch.int32, device=self.device)]}
-            self._fm_xa_started = False
+            self.fm_win = self.audio.fm_win_config(c, nlines, dev)
+            # channel mix + limiter + held values on the device, the int32
+            # phase anchor a device scalar chained block to block; the A2
+            # carriers' held values (0.95 scale) and carriers without an
+            # exact phase modulus stay on the host, as in the JAX package
+            self.fm_dev_held = self.fm_win is not None and not c.a2_scale
+            if self.fm_dev_held:
+                self._fm_xa: dict = {0: [None, torch.zeros(
+                    (), dtype=torch.int32, device=dev)]}
+                self._fm_xa_started = False
+        self.fm_right_statics = None
+        if self.audio.fm_right is not None:
+            c = self.audio.fm_right
+            self.fm_right_statics = audio_synth.make_fm_statics(
+                c.num, c.den, c.level_int, c.kd, p.width, nseg, c.eps,
+                device=dev)
+            self.fm_right_win = self.audio.fm_win_config(c, nlines, dev)
+            self.a2_statics = audio_synth.make_a2_statics(
+                self.audio.a2_pilot, c.kd, p.width, device=dev)
+        # fm_add mirrors a different contraction in a step with A2
+        self._a2 = self.fm_right_statics is not None
+        self.am_statics = None
+        if self.audio.am_mono is not None:
+            c = self.audio.am_mono
+            self.am_statics = audio_synth.make_fm_statics(
+                c.num, c.den, c.level_int, 0.0, p.width, nseg, c.eps,
+                device=dev)
         self.nicam_statics = None
         if self.audio.nicam is not None:
             nt = self.audio.nicam
             self.nicam_statics = audio_synth.make_nicam_statics(
                 nt["taps"], nt["num"], nt["den"], p.width, nt["timing"],
-                device=self.device)
+                device=dev)
             # the frame encoder runs on the device; its differential
             # state is a device scalar chained block to block
             st = self.nicam_statics
@@ -173,9 +219,10 @@ class Encoder:
             nf_max = (G * spp + st.nslot) // nicam_mod.NICAM_FRAME_SYMS + 12
             assert spp + nf_max * nicam_mod.NICAM_FRAME_SYMS <= L
             self.nicam_dev_statics = nicam_dev.make_dev_statics(
-                nf_max, L, spp, device=self.device)
-        self.has_audio = (self.fm_statics is not None
-                          or self.nicam_statics is not None)
+                nf_max, L, spp, device=dev)
+        self.has_audio = any(x is not None for x in (
+            self.fm_statics, self.fm_right_statics, self.am_statics,
+            self.nicam_statics))
 
     # ------------------------------------------------------------------
     def _block_meta(self, block_no: int) -> dict:
@@ -226,25 +273,35 @@ class Encoder:
             print("hacktv_tpu_torch: warning: frames_per_block="
                   f"{self.frames_per_block} with a non-static source "
                   "repeats each block's first frame", file=sys.stderr)
+        # SECAM's u/v are FM frequency offsets in deviation units
+        # (src/video.c:3944-3953)
         yuv = tuple(torch.as_tensor(a, device=self.device)
-                    for a in raster.rgb_to_yuv_host(self.params, rgb))
+                    for a in raster.rgb_to_yuv_host(
+                        self.params, rgb, secam=self.secam is not None))
         self._rgb_cache = (rgb, yuv)
         return yuv
 
     # ------------------------------------------------------------------
     def _step(self, yuv, m: dict, first: float, audio: dict):
         """Synthesis + output filter + audio + int16 quantisation for one
-        block of frames (plus halo lines).  Returns (samples, next FM
-        phase anchor or None, next NICAM differential state or None)."""
+        block of frames (plus halo lines).  Returns (samples, carries):
+        the next block's device scalars by name ("fm_xa", "nicam_dsym",
+        "secam_z")."""
         p = self.params
         W = p.width
         nlines = self.frames_per_block * p.lines
         n = nlines * W
+        carry = {}
 
         block = raster.synth_block(
             self.dstatics, yuv, m["base"], m["nxt"], m["burst"],
             m["vswitch"], m["vy"], m["al"], m["ar"], m["cos0"], m["sin0"],
             m["lut_row"], m["prv"] if self._use_prv else None)
+        if self.secam is not None:
+            sm, z0 = audio["secam"]
+            add, carry["secam_z"] = secam_mod.device_chroma_carrier(
+                self.secam, sm, yuv[1], yuv[2], z0)
+            block = secam_mod.render(self.secam, block, add, sm)
         block[0] *= first
         x = block.reshape(-1)
 
@@ -265,25 +322,41 @@ class Encoder:
 
         if not self.has_audio and not self.complex_out:
             return torch.clamp(torch.round(y), -32768, 32767).to(
-                torch.int16), None, None
+                torch.int16), carry
 
         out_i = y
         out_q = yq if yq is not None else torch.zeros_like(out_i)
-        xa_next = None
         if self.fm_statics is not None:
             d = audio["fm_mono"]
-            held = audio_synth.held_device(self.audio.fm_mono, d["pcm"],
-                                           _LIM_HIST)
-            fmargs, xa_next = audio_synth.fm_prepare(
-                self.fm_win, self.fm_statics, nlines, held, d["xa"],
-                d["lens_off"], d["offq"], d["offr"], d["col0"], d["ctab"],
-                d["stab"], adv=d["adv"])
+            if self.fm_dev_held:
+                held = audio_synth.held_device(self.audio.fm_mono, d["pcm"],
+                                               _LIM_HIST)
+                fmargs, carry["fm_xa"] = audio_synth.fm_prepare(
+                    self.fm_win, self.fm_statics, nlines, held, d["xa"],
+                    d["lens_off"], d["offq"], d["offr"], d["col0"],
+                    d["ctab"], d["stab"], adv=d["adv"])
+            else:
+                fmargs = self._fm_args(d, self.fm_win, self.fm_statics)
             out_i, out_q = audio_synth.fm_add(self.fm_statics, out_i, out_q,
-                                              *fmargs)
-        dsym_next = None
+                                              *fmargs, a2=self._a2)
+        if self.fm_right_statics is not None:
+            pp = audio["a2_pilot"]
+            phi_extra = audio_synth.a2_pilot_phase(
+                self.a2_statics, pp["c1"], pp["s1"], pp["c2"], pp["s2"],
+                pp["base_phase"])
+            out_i, out_q = audio_synth.fm_add(
+                self.fm_right_statics, out_i, out_q,
+                *self._fm_args(audio["fm_right"], self.fm_right_win,
+                               self.fm_right_statics), phi_extra,
+                a2=True)
+        if self.am_statics is not None:
+            am = audio["am_mono"]
+            out_i, out_q = audio_synth.am_add(
+                self.am_statics, out_i, out_q, am["seg_val"], am["seg_col"],
+                am["c0"], am["s0"])
         if self.nicam_statics is not None:
             nc = audio["nicam"]
-            signs_i, signs_q, dsym_next = nicam_dev.signs_device(
+            signs_i, signs_q, carry["nicam_dsym"] = nicam_dev.signs_device(
                 self.nicam_dev_statics, nc["pcm"], nc["dsym_in"],
                 nc["famod16"], nc["base_off"], nc["nkeep"])
             out_i, out_q = audio_synth.nicam_add(
@@ -297,7 +370,37 @@ class Encoder:
             return ((torch.round(v).to(torch.int32) + 0x8000) & 0xFFFF) \
                 - 0x8000
         iq = torch.stack([wrap(out_i), wrap(out_q)], dim=-1)
-        return iq.to(torch.int16), xa_next, dsym_next
+        return iq.to(torch.int16), carry
+
+    def _fm_args(self, d: dict, fw, st) -> tuple:
+        """fm_add's segment arguments of a host-held FM carrier: assembled
+        on the device from held values (fm_prepare) when the carrier's
+        phase modulus is exact, else as the host assembled them."""
+        if fw is not None:
+            return audio_synth.fm_prepare(
+                fw, st, self.frames_per_block * self.params.lines,
+                d["held"], d["xa"], d["lens_off"], d["offq"], d["offr"],
+                d["col0"], d["ctab"], d["stab"])
+        return (d["seg_val"], d["seg_base"], d["seg_col"], d["ctab"],
+                d["stab"], None)
+
+    def _host_fm(self, carrier, k0: int, nlines: int, fw) -> dict:
+        """Host side of an FM carrier whose held values are computed on
+        the host (AudioChain.fm_compact_block or fm_block), as tensors
+        where the step reads them on the device."""
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                      device=self.device)
+        if fw is not None:
+            d = self.audio.fm_compact_block(carrier, k0, nlines, fw)
+            d["xa"] = torch.tensor(d["xa"], dtype=torch.int32,
+                                   device=self.device)
+            for k in ("held", "col0", "ctab", "stab"):
+                d[k] = t(d[k])
+        else:
+            d = self.audio.fm_block(carrier, k0, nlines)
+            for k in ("seg_val", "seg_base", "seg_col", "ctab", "stab"):
+                d[k] = t(d[k])
+        return d
 
     def _audio_args(self, block_no: int) -> dict:
         """Host audio-rate computation -> per-block arguments (host ints
@@ -335,6 +438,20 @@ class Encoder:
             for k in ("pcm", "col0", "ctab", "stab"):
                 dct[k] = torch.as_tensor(dct[k], device=self.device)
             args["fm_mono"] = dct
+        elif self.fm_statics is not None:
+            args["fm_mono"] = self._host_fm(self.audio.fm_mono, a_k0, nlines,
+                                            self.fm_win)
+        if self.fm_right_statics is not None:
+            args["fm_right"] = self._host_fm(self.audio.fm_right, a_k0,
+                                             nlines, self.fm_right_win)
+            args["a2_pilot"] = {
+                k: torch.as_tensor(v, device=self.device)
+                for k, v in self.audio.pilot_block(a_k0, nlines).items()}
+        if self.am_statics is not None:
+            args["am_mono"] = {
+                k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
+                for k, v in self.audio.am_block(self.audio.am_mono, a_k0,
+                                                nlines).items()}
         if self.nicam_statics is not None:
             nc = self.audio.nicam_device_block(
                 a_k0, nlines, self.nicam_statics, self.nicam_dev_statics,
@@ -343,7 +460,34 @@ class Encoder:
                 nc[k] = torch.as_tensor(nc[k], device=self.device)
             args["nicam"] = nc
             args["nicam_k0mod"] = a_k0 % self.nicam_statics.period
+        if self.secam is not None:
+            args["secam"] = self._secam_args(block_no)
         return args
+
+    def _secam_args(self, block_no: int):
+        """The block's SECAM metadata on the device and the IIR carry.
+        The per-line metadata is periodic in the stream line with period
+        6 frames (dr parity: 2, carrier phase sign: 3); block 0 is special
+        (clamped pre-stream rows).  Building a new key is a Python loop
+        over the block's lines."""
+        nlines = self.frames_per_block * self.params.lines
+        k0 = block_no * nlines
+        key = k0 % (6 * self.conf.lines) if k0 > 0 else -1
+        sm = self._secam_meta_cache.get(key)
+        if sm is not None:
+            self._secam_meta_cache.move_to_end(key)
+        else:
+            nm = secam_mod.block_meta(
+                self.params, k0 - 1, nlines + 1 + self.halo_after, nlines,
+                self.vframe_y, self.source.height)
+            sm = secam_mod.meta_to_device(nm, self.device)
+            while len(self._secam_meta_cache) > 64:
+                self._secam_meta_cache.popitem(last=False)
+            self._secam_meta_cache[key] = sm
+        if block_no not in self._secam_z:
+            raise RuntimeError("SECAM blocks must be encoded sequentially "
+                               f"(no IIR carry for block {block_no})")
+        return sm, self._secam_z[block_no]
 
     def _nicam_dev_fn(self, *a):
         """signs_device on this encoder's statics (the seek catch-up)."""
@@ -356,12 +500,14 @@ class Encoder:
         yuv = self._device_rgb(block_no)
         m = self._block_meta(block_no)
         first = 0.0 if block_no == 0 else 1.0
-        out, xa_next, dsym_next = self._step(yuv, m, first,
-                                             self._audio_args(block_no))
+        out, carry = self._step(yuv, m, first, self._audio_args(block_no))
         if self.fm_dev_held:
-            self._fm_xa[block_no + 1][1] = xa_next
+            self._fm_xa[block_no + 1][1] = carry["fm_xa"]
         if self.nicam_statics is not None:
-            self.audio.nicam_dev_dsym(dsym_next)
+            self.audio.nicam_dev_dsym(carry["nicam_dsym"])
+        if self.secam is not None:
+            self._secam_z[block_no + 1] = carry["secam_z"]
+            self._secam_z.pop(block_no - 2, None)
         return out
 
     @property
@@ -395,7 +541,7 @@ def _check_supported(conf: VidConfig) -> None:
     if conf.mac_mode is not None:
         raise NotImplementedError("MAC modes are not ported yet")
     if conf.colour_mode not in (ColourMode.PAL, ColourMode.NTSC,
-                                ColourMode.MONOCHROME):
+                                ColourMode.SECAM, ColourMode.MONOCHROME):
         raise NotImplementedError(
             f"colour mode {conf.colour_mode.name} is not ported yet")
     if conf.modulation == Modulation.FM:

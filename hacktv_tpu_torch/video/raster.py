@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..audio.synth import fma32
 from ..config.standards import ColourMode
 from ..ops.stream_fir import fuse_second
 from .params import VideoParams
@@ -337,10 +338,13 @@ def _synth_rows(st, y_rows, u_rows, v_rows, has_video_rows, base, nxt,
             cos_t = st.carrier_rows[0][lut_row]
             sin_t = st.carrier_rows[1][lut_row]
         else:
-            cos_t = torch.round((cos0[:, None] * st.carrier_cos
-                                 - sin0[:, None] * st.carrier_sin) * 32767.0)
-            sin_t = torch.round((sin0[:, None] * st.carrier_cos
-                                 + cos0[:, None] * st.carrier_sin) * 32767.0)
+            # mirrors XLA's CPU contraction: of a*b +- c*d, c*d is rounded
+            # and a*b fused into the add or subtract
+            c0, s0 = cos0[:, None], sin0[:, None]
+            cos_t = torch.round(fma32(c0, st.carrier_cos,
+                                      -(s0 * st.carrier_sin)) * 32767.0)
+            sin_t = torch.round(fma32(s0, st.carrier_cos,
+                                      c0 * st.carrier_sin) * 32767.0)
         # The reference's mix is integer: (lut.i*V*pal + lut.q*U) >> 15
         # (src/video.c:3031-3041).  The products reach ~2^30, beyond
         # f32's 24-bit mantissa, so the multiply-accumulate-shift runs in

@@ -1,7 +1,9 @@
 """Card-only checks of the port: the CUDA kernels against their plain
-versions (bit for bit), the NICAM coder and pulse synthesis and the
-encoder on the card against their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
-neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
+versions (bit for bit); the NICAM coder and pulse synthesis, the SECAM
+chroma program, the AM carrier, the A2 pilot phase and the encoder on the
+card against their CPU path (byte for byte).  They skip without an NVIDIA
+card.  The file imports neither jax nor hacktv_tpu, so on a machine
+without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 """
@@ -17,6 +19,8 @@ from hacktv_tpu_torch import Encoder
 from hacktv_tpu_torch.audio import nicam_dev, synth
 from hacktv_tpu_torch.av.noise import NoiseSource
 from hacktv_tpu_torch.ops import stream_fir as sf
+from hacktv_tpu_torch.video import raster
+from hacktv_tpu_torch.video import secam
 
 pytestmark = pytest.mark.cuda
 
@@ -134,6 +138,69 @@ def test_encoder_card_matches_cpu(cuda, mode, rate):
     g = Encoder(mode, rate, vfilter=True, source=src, device=cuda)
     c = Encoder(mode, rate, vfilter=True, source=src, device="cpu")
     for b in range(2):
+        snr, maxerr, ndiff = tc.error_report(g.encode_block(b),
+                                             c.encode_block(b))
+        msg = f"{mode} block {b}: {snr:.1f} dB, max {maxerr}, {ndiff} differ"
+        assert ndiff == 0, msg
+
+
+@pytest.mark.parametrize("fpb", [1, 64])
+def test_secam_chroma_card_matches_cpu(cuda, fpb):
+    """device_chroma_carrier of SECAM-L's block 1 (the test card, a
+    carried z) on the card and on the CPU: the carrier add-in and the
+    next z byte-equal."""
+    out = {}
+    for d in ("cpu", cuda):
+        e = Encoder("l", 16_000_000, frames_per_block=fpb, device=d)
+        p = e.params
+        nl = fpb * p.lines
+        nm = secam.block_meta(p, nl - 1, nl + 2, nl, e.vframe_y,
+                              e.source.height)
+        _, u, v = raster.rgb_to_yuv_host(p, e.source.read_video(0), True)
+        add, z = secam.device_chroma_carrier(
+            e.secam, secam.meta_to_device(nm, d),
+            torch.as_tensor(u, device=d), torch.as_tensor(v, device=d),
+            torch.tensor(-1234.5, device=d))
+        out[d] = (add.cpu().numpy(), z.cpu().numpy())
+    for name, a, b in zip(("carrier", "z"), out[cuda], out["cpu"]):
+        assert a.tobytes() == b.tobytes(), \
+            f"{name}: {np.count_nonzero(a != b)} of {a.size} differ"
+
+
+def test_am_and_a2_pilot_card_match_cpu(cuda):
+    """am_add (SECAM-L's AM carrier) and a2_pilot_phase (PAL-B/G's A2
+    pilot) on seeded blocks, on the card and on the CPU: byte-equal."""
+    out = {}
+    for d in ("cpu", cuda):
+        e = Encoder("l", 16_000_000, device=d)
+        a = Encoder("g", 16_000_000, a2stereo=True, device=d)
+        rng = np.random.default_rng(6)
+        y = torch.as_tensor(np.round(rng.standard_normal(
+            (2, 625, 1024)) * 8000).astype(np.float32), device=d)
+        am = {k: torch.as_tensor(np.ascontiguousarray(v), device=d)
+              for k, v in e.audio.am_block(e.audio.am_mono, 1, 625).items()}
+        ai, aq = synth.am_add(e.am_statics, y[0], y[1], am["seg_val"],
+                              am["seg_col"], am["c0"], am["s0"])
+        pb = {k: torch.as_tensor(v, device=d)
+              for k, v in a.audio.pilot_block(3 * 625, 625).items()}
+        ph = synth.a2_pilot_phase(a.a2_statics, pb["c1"], pb["s1"],
+                                  pb["c2"], pb["s2"], pb["base_phase"])
+        out[d] = [t.cpu().numpy() for t in (ai, aq, ph)]
+    for name, a, b in zip(("am I", "am Q", "pilot phase"), out[cuda],
+                          out["cpu"]):
+        assert a.tobytes() == b.tobytes(), \
+            f"{name}: {np.count_nonzero(a != b)} of {a.size} differ"
+
+
+@pytest.mark.parametrize("mode,kw", [("l", {}), ("g", {"a2stereo": True})])
+def test_secam_a2_encoder_card_matches_cpu(cuda, mode, kw):
+    """SECAM-L (SECAM, AM, NICAM) and PAL-B/G with A2, one-frame blocks
+    0-2 (the SECAM carry crossed twice), card against CPU."""
+    probe = Encoder(mode, 16_000_000, device="cpu")
+    src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
+    g = Encoder(mode, 16_000_000, source=src, device=cuda, **kw)
+    c = Encoder(mode, 16_000_000, source=src, device="cpu", **kw)
+    for b in range(3):
         snr, maxerr, ndiff = tc.error_report(g.encode_block(b),
                                              c.encode_block(b))
         msg = f"{mode} block {b}: {snr:.1f} dB, max {maxerr}, {ndiff} differ"

@@ -97,9 +97,11 @@ def test_blocks_must_be_sequential():
         t.encode_block_device(2)
 
 
-@pytest.mark.parametrize("mode,kw", [("l", {}), ("secam", {}),
+@pytest.mark.parametrize("mode,kw", [("l", {"secam_exact": True}),
+                                     ("secam", {"swap_iq": True}),
                                      ("pal", {"teletext": "demo"}),
-                                     ("pal", {"offset": 1000})])
+                                     ("pal", {"offset": 1000}),
+                                     ("secam-fm", {})])
 def test_unported_options_raise(mode, kw):
     with pytest.raises(NotImplementedError):
         TEncoder(mode, 16_000_000, device="cpu", **kw)

@@ -10,9 +10,11 @@ glibc sin/cos emulation against this process's libm over seeded inputs in
 fm_add's phase range, the FM carrier against the JAX encoder's compiled
 fm_prepare + fm_add (NTSC-M, direct cos/sin) and against the JAX PAL-I
 encoder with NICAM off (the K=4 rotation chain), the NICAM sign stream
-and contribution against hacktv_tpu's device coder and nicam_add, and each
-encoder configuration's first two one-frame blocks (SNR, max error,
-differing samples)."""
+and contribution against hacktv_tpu's device coder and nicam_add, the SECAM
+chroma program against the JAX one (and the largest carrier phase the
+test card gives), and each encoder configuration's first one-frame blocks
+(SNR, max error, differing samples): two for the PAL and NTSC chains,
+three (the SECAM IIR carry crossed twice) for SECAM, AM and A2."""
 
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ from hacktv_tpu.audio import nicam_dev as jnd  # noqa: E402
 from hacktv_tpu.audio import synth as jsynth  # noqa: E402
 from hacktv_tpu.config import get_mode as jget_mode  # noqa: E402
 from hacktv_tpu.ops import pallas_fir  # noqa: E402
+from hacktv_tpu.video import params as jparams  # noqa: E402
+from hacktv_tpu.video import raster as jraster  # noqa: E402
+from hacktv_tpu.video import secam as jsecam  # noqa: E402
 from hacktv_tpu_torch import Encoder as TEncoder  # noqa: E402
 from hacktv_tpu_torch.audio import chain as tchain  # noqa: E402
 from hacktv_tpu_torch.audio import nicam_dev as tnd  # noqa: E402
@@ -48,6 +53,7 @@ from hacktv_tpu_torch.audio import synth as tsynth  # noqa: E402
 from hacktv_tpu_torch.av.noise import NoiseSource  # noqa: E402
 from hacktv_tpu_torch.config import get_mode as tget_mode  # noqa: E402
 from hacktv_tpu_torch.ops import stream_fir as sf  # noqa: E402
+from hacktv_tpu_torch.video import secam as tsecam  # noqa: E402
 
 
 def fir_rule(sets: int = 24, nt: int = 11, n: int = 3000) -> None:
@@ -180,19 +186,62 @@ def nicam() -> None:
               f"{snr:.1f} dB, max error {maxerr}, {ndiff} values differ")
 
 
+def secam() -> None:
+    """device_chroma_carrier against the JAX function jitted on its own,
+    on the test card's SECAM planes, blocks 0-2 with their carried z; and
+    the largest |phase| of the SECAM carrier over those rows (glibc's
+    fast sin/cos path, which _sincosf_glibc reproduces, ends at 120)."""
+    t = TEncoder("secam", 16_000_000, device="cpu")
+    p, W = t.params, t.params.width
+    j = jparams.VideoParams.create(jget_mode("secam"), 16_000_000, 0)
+    _, u, v = jraster.rgb_to_yuv_host(j, t.source.read_video(0), True)
+    js = jsecam.make_statics(j, 0, p.active_width)
+    jfn = jax.jit(lambda m, u, v, z: jsecam.device_chroma_carrier(
+        js, W, m, u, v, z))
+    phase_max = 0.0
+    orig = tsecam._sincosf_glibc
+
+    def probe(x):
+        nonlocal phase_max
+        phase_max = max(phase_max, float(x.abs().max()))
+        return orig(x)
+    tsecam._sincosf_glibc = probe
+    zj, zt = jnp.float32(0.0), torch.tensor(0.0)
+    for b in range(3):
+        nm = tsecam.block_meta(p, b * 625 - 1, 627, 625, 0, t.source.height)
+        jo, zj = jfn({k: jnp.asarray(a) for k, a in nm.items()},
+                     jnp.asarray(u), jnp.asarray(v), zj)
+        to, zt = tsecam.device_chroma_carrier(
+            t.secam, tsecam.meta_to_device(nm, "cpu"), torch.as_tensor(u),
+            torch.as_tensor(v), zt)
+        print(f"SECAM chroma program, block {b}: "
+              f"{np.count_nonzero(to.numpy() != np.asarray(jo))} of "
+              f"{to.numel()} samples differ, z carry "
+              f"{'equal' if float(zt) == float(zj) else 'differs'}")
+    tsecam._sincosf_glibc = orig
+    print(f"SECAM carrier phase on the test card: max |phase| "
+          f"{phase_max:.3f} rad")
+
+
 def encoders() -> None:
     for mode, rate, kw in (
             ("m", 13_500_000, dict(vfilter=True)), ("m", 13_500_000, {}),
             ("pal", 16_000_000, dict(vfilter=True)), ("pal", 16_000_000, {}),
             ("i", 16_000_000, {}), ("i", 16_000_000, dict(vfilter=True)),
             ("i", 16_000_000, dict(fm_direct_trig=True)),
-            ("g", 16_000_000, {})):
+            ("g", 16_000_000, {}), ("secam", 16_000_000, {}),
+            ("l", 16_000_000, {}), ("l", 16_000_000, dict(vfilter=True)),
+            ("d", 16_000_000, {}), ("a", 16_000_000, {}),
+            ("g", 16_000_000, dict(a2stereo=True)),
+            ("m", 13_513_500, dict(a2stereo=True))):
         probe = TEncoder(mode, rate, device="cpu")
         src = NoiseSource(probe.params.active_width, probe.conf.active_lines,
                           seed=7)
         j = JEncoder(mode, rate, source=src, **kw)
         t = TEncoder(mode, rate, source=src, device="cpu", **kw)
-        for b in range(2):
+        nb = 3 if mode in ("secam", "l", "d", "a") or kw.get(
+            "a2stereo") else 2
+        for b in range(nb):
             snr, maxerr, ndiff = tc.error_report(t.encode_block(b),
                                                  j.encode_block(b))
             print(f"Encoder({mode!r}, {rate}, {kw}) block {b}: SNR "
@@ -212,4 +261,5 @@ if __name__ == "__main__":
     fm_flips()
     fm_chain()
     nicam()
+    secam()
     encoders()
