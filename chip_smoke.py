@@ -7,13 +7,19 @@ Paths: m-vsb (Encoder("m", 13.5 MS/s, --filter)), pal-lowpass
 (Encoder("pal", 16 MS/s, --filter)), pal-i (Encoder("i", 16 MS/s), the
 flagship chain with FM and NICAM-728 sound), pal-i-vsb (the same with
 --filter), secam-l-vsb (Encoder("l", 16 MS/s, --filter): SECAM colour, AM
-sound and NICAM) and g-a2 (Encoder("g", 16 MS/s, a2stereo=True): PAL-B/G
-with A2 stereo).
+sound and NICAM), g-a2 (Encoder("g", 16 MS/s, a2stereo=True): PAL-B/G
+with A2 stereo), pal-fm-preemph (Encoder("pal-fm", 20.25 MS/s,
+--filter): satellite FM video with the CCIR-405 pre-emphasis filter, the
+host-exact video and sound carriers of the native runtime) and
+mux-i-offset (MuxEncoder of two Encoder("i", 20 MS/s) at -2.25 and
++2.25 MHz: two PAL-I transmitters on one stream).
 
 Phases, one line each (any failure exits non-zero before the result):
 
   1. card: name and power limit;
-  2. build: the CUDA kernels from hacktv_tpu_torch/csrc, one nvcc each;
+  2. build: the CUDA kernels from hacktv_tpu_torch/csrc, one nvcc each,
+     and the native runtime from native/hacktv_rt.cpp with g++, all
+     started together;
   3. kernels: each kernel against its plain PyTorch version at the
      shapes of each filtered path, on a stream laid out and offset as the
      encoder's (not 16-byte aligned), with the encoder's taps and with
@@ -33,12 +39,18 @@ Phases, one line each (any failure exits non-zero before the result):
      of one block's SECAM metadata (block_meta, built once per key);
   6. end to end: each path at 64 frames per block, seeded noise for
      sound: 2 warm-up and 8 timed blocks (the host's enqueue time and the
-     block time to the card's end), with every kernel's launch count set
-     to 0 just before a path and read just after;
+     block time to the card's end; for FM video on the host, to the end
+     of its collect_block, where the FM recurrence runs), with every
+     kernel's launch count set to 0 just before a path and read just
+     after;
   7. the card against the port's CPU path, one-frame blocks 0-2 of each
-     path and of SECAM composite, SECAM-L, 405-line system A (AM sound)
-     and NTSC-M with A2 at 13.5135 MS/s: byte-identical required;
-  8. the command line, 4 frames of -m i to a file.
+     path and of SECAM composite, SECAM-L (device and host-exact
+     chroma), 405-line system A (AM sound), NTSC-M with A2 at 13.5135
+     MS/s, SECAM-FM, NTSC-FM with its 71-tap pre-emphasis at 20.25 MS/s,
+     PAL-FM with swap-IQ (FM video's device closed form) and PAL-I at
+     20 MS/s 2.25 MHz below centre: byte-identical required;
+  8. the command line, 4 frames of -m i and of -m pal-fm --filter to
+     files through the native sink.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -64,20 +76,55 @@ F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 FPB = 64                       # frames per block on the main path
 TIMED_BLOCKS = 8
 WARM_BLOCKS = 2
-# path: (mode, sample rate, --filter, other Encoder arguments)
+# path: (mode, sample rate, --filter, other Encoder arguments); "mux" is a
+# MuxEncoder of one such encoder per frequency offset
+MUX_OFFSETS = (-2_250_000, 2_250_000)
 PATHS = {"m-vsb": ("m", 13_500_000, True, {}),
          "pal-lowpass": ("pal", 16_000_000, True, {}),
          "pal-i": ("i", 16_000_000, False, {}),
          "pal-i-vsb": ("i", 16_000_000, True, {}),
          "secam-l-vsb": ("l", 16_000_000, True, {}),
-         "g-a2": ("g", 16_000_000, False, {"a2stereo": True})}
+         "g-a2": ("g", 16_000_000, False, {"a2stereo": True}),
+         "pal-fm-preemph": ("pal-fm", 20_250_000, True, {}),
+         "mux-i-offset": ("i", 20_000_000, False, {"mux": MUX_OFFSETS})}
 # the card against the CPU: the paths and these
 CPU_PATHS = {**PATHS,
              "secam": ("secam", 16_000_000, False, {}),
              "l": ("l", 16_000_000, False, {}),
              "a": ("a", 16_000_000, False, {}),
-             "m-a2": ("m", 13_513_500, False, {"a2stereo": True})}
+             "m-a2": ("m", 13_513_500, False, {"a2stereo": True}),
+             "secam-fm": ("secam-fm", 16_000_000, False, {}),
+             "ntsc-fm-preemph": ("ntsc-fm", 20_250_000, True, {}),
+             "pal-fm-swap": ("pal-fm", 16_000_000, False, {"swap_iq": True}),
+             "i-offset": ("i", 20_000_000, False, {"offset": -2_250_000}),
+             "l-secam-exact": ("l", 16_000_000, False,
+                               {"secam_exact": True})}
 CPU_BLOCKS = 3                 # one-frame blocks 0-2: SECAM's carry twice
+
+
+def build(spec, device, source=None, frames_per_block=1):
+    """The encoder (or mux of encoders) of a PATHS/CPU_PATHS entry."""
+    from hacktv_tpu_torch.encoder import Encoder
+    from hacktv_tpu_torch.mux import MuxEncoder
+    mode, rate, vfilter, kw = spec
+    kw = dict(kw)
+    offsets = kw.pop("mux", None)
+    mk = lambda **extra: Encoder(mode, rate, vfilter=vfilter, source=source,
+                                 frames_per_block=frames_per_block,
+                                 device=device, **kw, **extra)
+    if offsets is None:
+        return mk()
+    return MuxEncoder([mk(offset=o) for o in offsets])
+
+
+def noise_source(spec):
+    """Seeded noise sound on the test card, sized for the path's mode."""
+    from hacktv_tpu_torch.av.noise import NoiseSource
+    from hacktv_tpu_torch.config import get_mode
+    from hacktv_tpu_torch.video.params import VideoParams
+    conf = get_mode(spec[0])
+    p = VideoParams.create(conf, spec[1], 0)
+    return NoiseSource(p.active_width, conf.active_lines)
 
 
 def fail(msg: str) -> None:
@@ -379,20 +426,21 @@ def secam_phase(Encoder) -> None:
     torch.cuda.empty_cache()
 
 
-def e2e_phase(Encoder, NoiseSource, sf, path: str, profile_dir) -> dict:
+def e2e_phase(sf, path: str, profile_dir) -> dict:
     mode, rate, vfilter, kw = PATHS[path]
-    probe = Encoder(mode, rate, vfilter=vfilter, device="cpu", **kw)
-    src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
-    enc = Encoder(mode, rate, vfilter=vfilter, frames_per_block=FPB,
-                  source=src, device="cuda", **kw)
+    enc = build(PATHS[path], "cuda", noise_source(PATHS[path]), FPB)
+    # FM video on the host finishes in collect_block (its FM recurrence):
+    # there a block is timed to the end of its collection
+    host_fm = getattr(enc, "fm_video_exact", None) is not None
     counts = (sf.fir_cplx, sf.fir_real)
     for c in counts:
         c.launches = 0
-    outs = []
     for b in range(WARM_BLOCKS):
-        outs.append(enc.encode_block_device(b))
+        out = enc.encode_block_device(b)
+        if host_fm:
+            host = enc.collect_block(b, out)
     torch.cuda.synchronize()
-    block_s, enqueue_s = [], []
+    block_s, enqueue_s, collect_s = [], [], []
     t0 = time.perf_counter()
     for b in range(WARM_BLOCKS, WARM_BLOCKS + TIMED_BLOCKS):
         tb = time.perf_counter()
@@ -400,12 +448,17 @@ def e2e_phase(Encoder, NoiseSource, sf, path: str, profile_dir) -> dict:
         # the host's share: the block is issued, the card may still run
         enqueue_s.append(time.perf_counter() - tb)
         torch.cuda.synchronize()
+        if host_fm:
+            tc = time.perf_counter()
+            host = enc.collect_block(b, out)
+            collect_s.append(time.perf_counter() - tc)
         block_s.append(time.perf_counter() - tb)
     dt = time.perf_counter() - t0
     launches = {c.__name__: c.launches for c in counts}
     nblocks = WARM_BLOCKS + TIMED_BLOCKS
     samples = TIMED_BLOCKS * FPB * enc.frame_samples
-    host = enc.collect_block(WARM_BLOCKS + TIMED_BLOCKS - 1, out)
+    if not host_fm:
+        host = enc.collect_block(WARM_BLOCKS + TIMED_BLOCKS - 1, out)
     if not np.isfinite(host.astype(np.float64)).all() or host.size != (
             FPB * enc.frame_samples * (2 if enc.complex_out else 1)):
         fail(f"{path}: output of the wrong size")
@@ -417,6 +470,8 @@ def e2e_phase(Encoder, NoiseSource, sf, path: str, profile_dir) -> dict:
           block_s=",".join(f"{s:.4f}" for s in block_s),
           median_block_s=f"{statistics.median(block_s):.4f}",
           median_enqueue_s=f"{statistics.median(enqueue_s):.4f}",
+          median_collect_s=(f"{statistics.median(collect_s):.4f}"
+                            if collect_s else "-"),
           launches=json.dumps(launches).replace(" ", ""),
           peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
     want = ({} if not vfilter else
@@ -425,11 +480,40 @@ def e2e_phase(Encoder, NoiseSource, sf, path: str, profile_dir) -> dict:
     for k, v in launches.items():
         if v != want.get(k, 0):
             fail(f"{path}: {k} launched {v} times for {nblocks} blocks")
+    if host_fm:
+        fm_host_phase(enc, out)
     if profile_dir:
         profile_block(enc, WARM_BLOCKS + TIMED_BLOCKS, path, profile_dir)
-    del enc, outs
+    del enc, out, host
     torch.cuda.empty_cache()
     return launches
+
+
+def fm_host_phase(enc, out) -> None:
+    """The host's parts of one block of FM video on the host, each timed
+    alone: the sound carrier's held feed (fm_exact_stream), one serial
+    carrier recurrence over the block's samples (rt_fm_carrier_exact; the
+    block runs two, sound and video) and the copy of the block's int16
+    (I, Q) from the card."""
+    from hacktv_tpu_torch import runtime
+    c = enc.audio.fm_mono
+    n = FPB * enc.params.lines * enc.out_params.width
+    t = time.perf_counter()
+    feed = enc.audio.fm_exact_stream(c, 0, n)
+    feed_s = time.perf_counter() - t
+    fx = runtime.FmCarrierExact(c.frequency, c.deviation,
+                                enc.params.sample_rate, c.level_int)
+    t = time.perf_counter()
+    fx.process(feed, 0)
+    carrier_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out.cpu()
+    d2h_s = time.perf_counter() - t
+    phase("fm-host", samples=n, feed_s=f"{feed_s:.4f}",
+          carrier_recurrence_s=f"{carrier_s:.4f}", d2h_s=f"{d2h_s:.4f}",
+          d2h_gb_per_s=f"{out.numel() * 2 / d2h_s / 1e9:.2f}",
+          card=json.dumps(CARD["smi"]))
 
 
 def profile_block(enc, b, path, out_dir):
@@ -454,14 +538,11 @@ def profile_block(enc, b, path, out_dir):
           file=os.path.join(out_dir, f"profile_{path}.txt"))
 
 
-def cpu_compare_phase(Encoder, NoiseSource) -> None:
-    for path, (mode, rate, vfilter, kw) in CPU_PATHS.items():
-        probe = Encoder(mode, rate, vfilter=vfilter, device="cpu", **kw)
-        src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
-        g = Encoder(mode, rate, vfilter=vfilter, source=src, device="cuda",
-                    **kw)
-        c = Encoder(mode, rate, vfilter=vfilter, source=src, device="cpu",
-                    **kw)
+def cpu_compare_phase() -> None:
+    for path, spec in CPU_PATHS.items():
+        src = noise_source(spec)
+        g = build(spec, "cuda", src)
+        c = build(spec, "cpu", src)
         for b in range(CPU_BLOCKS):
             a = g.encode_block(b).astype(np.int64)
             r = c.encode_block(b).astype(np.int64)
@@ -479,19 +560,30 @@ def cpu_compare_phase(Encoder, NoiseSource) -> None:
 
 
 def cli_phase() -> None:
+    """Four frames from the command line to a file through the native
+    sink: PAL-I, and PAL-FM with the pre-emphasis filter."""
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "out.bin")
-        t = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "hacktv_tpu_torch", "-m", "i",
-             "--frames", "4", "-o", out, "test"],
-            capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"cli exited {r.returncode}: {r.stderr[-2000:]}")
-        size = os.path.getsize(out)
-        phase("cli", bytes=size, seconds=f"{time.perf_counter() - t:.1f}")
-        if size != 4 * 640_000 * 2 * 2:
-            fail(f"cli wrote {size} bytes, expected {4 * 640_000 * 4}")
+        for args, frame_samples in ((["-m", "i"], 640_000),
+                                    (["-m", "pal-fm", "--filter", "-s",
+                                      "20250000"], 810_000)):
+            out = os.path.join(tmp, "out.bin")
+            t = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "hacktv_tpu_torch", *args,
+                 "--frames", "4", "-o", out, "test"],
+                capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                fail(f"cli {args} exited {r.returncode}: "
+                     f"{r.stderr[-2000:]}")
+            size = os.path.getsize(out)
+            data = np.fromfile(out, np.int16)
+            phase("cli", args="".join(args), bytes=size,
+                  seconds=f"{time.perf_counter() - t:.1f}")
+            if size != 4 * frame_samples * 2 * 2:
+                fail(f"cli {args} wrote {size} bytes, expected "
+                     f"{4 * frame_samples * 4}")
+            if not np.any(data):
+                fail(f"cli {args} wrote only zeros")
 
 
 def main() -> int:
@@ -502,7 +594,9 @@ def main() -> int:
         fail("no CUDA device")
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
-    from hacktv_tpu_torch.av.noise import NoiseSource
+    import threading
+
+    from hacktv_tpu_torch import runtime
     from hacktv_tpu_torch.config import get_mode
     from hacktv_tpu_torch.encoder import Encoder
     from hacktv_tpu_torch.ops import cuda_build
@@ -511,9 +605,26 @@ def main() -> int:
 
     kind = card()
     t = time.perf_counter()
+    # g++ on the native runtime beside nvcc on each kernel source
+    rt = {}
+
+    def build_runtime():
+        try:
+            rt["built"] = runtime.build()
+            rt["s"] = time.perf_counter() - t
+        except Exception as e:          # reported after the join
+            rt["error"] = e
+    rt_thread = threading.Thread(target=build_runtime)
+    rt_thread.start()
     reports = cuda_build.build_all()
+    rt_thread.join()
+    if "error" in rt:
+        fail(f"native runtime build: {rt['error']}")
+    runtime.load()
     phase("build", seconds=f"{time.perf_counter() - t:.1f}",
-          built=",".join(sorted(reports)) or "none")
+          built=",".join(sorted(reports)) or "none",
+          native_runtime=("built" if rt["built"] else "up to date"),
+          native_runtime_s=f"{rt['s']:.1f}")
     for name, rep in reports.items():
         for line in rep.strip().splitlines():
             if "registers" in line or "spill" in line:
@@ -524,14 +635,13 @@ def main() -> int:
     secam_phase(Encoder)
     launches = {}
     for path in PATHS:
-        launches[path] = e2e_phase(Encoder, NoiseSource, sf, path,
-                                   args.profile)
+        launches[path] = e2e_phase(sf, path, args.profile)
     for path, rec in recs:
         rec["launches"] = launches[path]["fir_cplx" if rec["name"].endswith(
             "cplx") else "fir_real"]
         if not rec["launches"]:
             fail(f"{path}: {rec['name']} was not launched on the main path")
-    cpu_compare_phase(Encoder, NoiseSource)
+    cpu_compare_phase()
     cli_phase()
     print(json.dumps({"kernels": [rec for _, rec in recs]}))
     print(json.dumps({"ok": True, "device": {

@@ -450,11 +450,32 @@ class AudioChain:
         return vals
 
     # -- host-held FM, AM and the A2 pilot ---------------------------------
+    def held_index(self, n) -> np.ndarray:
+        """Audio pair index held at output sample n (-1 = initial
+        silence): floor((n+1)*A/S) - 1 (src/video.c:3273-3277)."""
+        n = np.asarray(n, dtype=np.int64)
+        return (n + 1) * self.A // self.S - 1
+
     def hold_start(self, i) -> np.ndarray:
         """First output sample at which audio pair i is held:
         ceil(S*(i+1)/A) - 1."""
         i = np.asarray(i, dtype=np.int64)
         return _ceil_div(self.S * (i + 1), self.A) - 1
+
+    def fm_exact_stream(self, carrier: FMCarrier, n0: int, n1: int
+                        ) -> np.ndarray:
+        """Per-output-sample held int16 feed for output samples [n0, n1):
+        the value the reference's audio process holds while calling
+        _fm_modulator_add (src/video.c:3273-3424).  The held index is
+        non-decreasing in n, so each held value repeats over its hold
+        period (hold_start(i) to hold_start(i+1), clipped to the range):
+        the same values as held_values[held_index(n)] at every n."""
+        i_lo = int(self.held_index(n0))
+        i_hi = int(self.held_index(n1 - 1)) + 1
+        starts = np.clip(self.hold_start(np.arange(i_lo, i_hi + 1)), n0, n1)
+        vals = self._held_values(carrier, i_lo, i_hi)
+        return np.repeat(np.clip(vals, -32768, 32767).astype(np.int16),
+                         np.diff(starts))
 
     def _seg_pattern(self, k0: int, nlines: int):
         """Per-(line, seg) hold-value indices and segment start columns

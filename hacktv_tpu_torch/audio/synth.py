@@ -100,23 +100,76 @@ _SC_S = tuple(float.fromhex(h) for h in (
     "-0x1.555545995a603p-3", "0x1.1107605230bc4p-7",
     "-0x1.994eb3774cf24p-13"))
 SINCOSF_MAX = 120.0     # glibc's fast-reduction range
+# glibc's reduce_large (sincosf.h) for |x| >= 120: 4/pi to 192 bits, eight
+# new bits per entry (__inv_pio4, sincosf_data.c), and pi/2 * 2^-62
+_INV_PIO4 = (0xa2, 0xa2f9, 0xa2f983, 0xa2f9836e, 0xf9836e4e, 0x836e4e44,
+             0x6e4e4415, 0x4e441529, 0x441529fc, 0x1529fc27, 0x29fc2757,
+             0xfc2757d1, 0x2757d1f5, 0x57d1f534, 0xd1f534dd, 0xf534ddc0,
+             0x34ddc0db, 0xddc0db62, 0xc0db6295, 0xdb629599, 0x6295993c,
+             0x95993c43, 0x993c4390, 0x3c439041)
+_SC_PI63 = float.fromhex("0x1.921fb54442d18p-62")
+_M32 = 0xFFFFFFFF
 
 
-def _sincosf_glibc(x: torch.Tensor):
+def _reduce_large(x: torch.Tensor):
+    """glibc's reduce_large at every element of an f32 tensor: (n, r) with
+    x = n*pi/2 + r, in the integer arithmetic glibc uses.  The mantissa
+    (24 bits shifted by up to 7) times three 32-bit words of 4/pi gives
+    the 2.62 fixed-point fraction of |x| * 4/pi mod 8; its 64-bit sum runs
+    here as two 32-bit halves in int64, where no product or sum
+    overflows.  The signed remainder converts to f64 once and scales by
+    pi/2 * 2^-62, as glibc does.  For x < 0 the pair is that of |x|
+    negated, which is how glibc's sign handling comes out."""
+    xi = x.view(torch.int32).to(torch.int64) & _M32
+    tab = torch.tensor(_INV_PIO4, dtype=torch.int64, device=x.device)
+    j = (xi >> 26) & 15
+    m = ((xi & 0xFFFFFF) | 0x800000) << ((xi >> 23) & 7)    # < 2^31
+    res0 = (m * tab[j]) & _M32            # a uint32 product in C
+    res1 = m * tab[j + 4]                 # < 2^63
+    res2 = m * tab[j + 8]
+    # res0 = (res2 >> 32) | (res0 << 32); res0 += res1  (mod 2^64)
+    lo = (res2 >> 32) + (res1 & _M32)
+    hi = (res0 + (res1 >> 32) + (lo >> 32)) & _M32
+    lo &= _M32
+    n = ((hi + (1 << 29)) & _M32) >> 30   # (res0 + 2^61) >> 62
+    hi = (hi - (n << 30)) & _M32          # res0 -= n << 62
+    hi = torch.where(hi >= 1 << 31, hi - (1 << 32), hi)
+    r = (hi * (1 << 32) + lo).double() * _SC_PI63
+    neg = x < 0
+    return (torch.where(neg, -n, n).to(torch.int32),
+            torch.where(neg, -r, r))
+
+
+def _sincosf_glibc(x: torch.Tensor, large: bool = False):
     """(sinf(x), cosf(x)) of an f32 tensor, bit for bit as glibc computes
     them (see above), on any device.  The polynomial steps are not fused
-    here; that moves the f32 result about 2^-28 of the time.  Only glibc's
-    paths for |x| < 120 are written: a larger or non-finite input fails a
-    device-side assertion (raises on the CPU) instead of returning a wrong
-    value."""
+    here; that moves the f32 result about 2^-28 of the time.  Without
+    `large`, only glibc's paths for |x| < 120 run: a larger or non-finite
+    input fails a device-side assertion (raises on the CPU) instead of
+    returning a wrong value.  With `large`, inputs of |x| >= 120 take
+    glibc's reduce_large (`_reduce_large`), at the cost of a dozen int64
+    passes over the tensor; a non-finite input fails the assertion."""
     if x.numel():
-        torch._assert_async(x.abs().amax() < SINCOSF_MAX,
-                            "_sincosf_glibc: |x| >= 120 or not finite")
+        if large:
+            torch._assert_async(torch.isfinite(x).all(),
+                                "_sincosf_glibc: input not finite")
+        else:
+            torch._assert_async(x.abs().amax() < SINCOSF_MAX,
+                                "_sincosf_glibc: |x| >= 120 or not finite")
     xd = x.double()
+    if large:
+        # the fast reduction's int32 quadrant would overflow there
+        big = x.abs() >= SINCOSF_MAX
+        xd = torch.where(big, 0.0, xd)
     n = ((xd * _SC_HPI_INV).to(torch.int32) + 0x800000) >> 24
     nd = n.double()
     r = (xd - nd * _SC_HPI_HI).sub_(nd * _SC_HPI_LO)
     del xd, nd
+    if large:
+        n_l, r_l = _reduce_large(x)
+        n = torch.where(big, n_l, n)
+        r = torch.where(big, r_l, r)
+        del big, n_l, r_l
     r2 = r * r
     r3 = r2 * r
     s = (r3 * _SC_S[0]).add_(r)

@@ -4,9 +4,14 @@ covers (port of hacktv_tpu/cli.py).
     python -m hacktv_tpu_torch -m i --frames 4 -o out.bin test
 
 writes 4 frames of PAL-I with FM and NICAM-728 sound as interleaved int16
-I/Q.  Accepted: -m MODE, -s RATE, --filter, --noaudio, --nonicam,
---a2stereo, --secam-field-id, --secam-field-id-lines N, -t TYPE, -o FILE,
---frames N, --device {cuda,cpu} and the input `test`.  Any other switch is
+I/Q.  Accepted: -m MODE (the satellite FM modes pal-fm, ntsc-fm and
+secam-fm among them), -s RATE, --filter, --noaudio, --nonicam,
+--a2stereo, --swap-iq, --offset HZ, --passthru FILE, --raw-bb-file FILE,
+--raw-bb-blanking N, --raw-bb-white N, --secam-field-id,
+--secam-field-id-lines N, --secam-exact, -t TYPE, -o FILE, --frames N,
+--device {cuda,cpu} and the input `test`.  The output goes through the
+native runtime's threaded file sink (runtime.NativeFileSink), built at
+first use; without a C++ compiler it raises.  Any other switch is
 refused; modes and options that the port does not cover yet raise
 NotImplementedError.
 """
@@ -39,8 +44,16 @@ def _build_parser() -> argparse.ArgumentParser:
     a("--nonicam", action="store_true")
     a("--a2stereo", action="store_true",
       help="A2 (Zweikanalton) stereo: a second FM sound carrier")
+    a("--swap-iq", action="store_true")
+    a("--offset", type=float, default=0)
+    a("--passthru", default=None, metavar="FILE")
+    a("--raw-bb-file", default=None, metavar="FILE")
+    a("--raw-bb-blanking", type=int, default=0)
+    a("--raw-bb-white", type=int, default=0x300)
     a("--secam-field-id", action="store_true")
     a("--secam-field-id-lines", type=int, default=None)
+    a("--secam-exact", action="store_true",
+      help="the host-exact SECAM chroma (the default of secam-fm)")
     a("-t", "--type", default="int16",
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
     a("--frames", type=int, default=0,
@@ -75,13 +88,18 @@ def main(argv=None) -> int:
     fpb = min(16, args.frames) if args.frames else 16
 
     from .encoder import Encoder
-    from .rf.file import FileSink
+    from .runtime import NativeFileSink
     enc = Encoder(conf, int(args.samplerate), frames_per_block=fpb,
                   vfilter=args.vfilter, a2stereo=args.a2stereo,
+                  offset=int(args.offset), swap_iq=args.swap_iq,
+                  passthru=args.passthru, raw_bb_file=args.raw_bb_file,
+                  raw_bb_blanking=args.raw_bb_blanking,
+                  raw_bb_white=args.raw_bb_white,
+                  secam_exact=True if args.secam_exact else None,
                   device=args.device)
     target = args.output[5:] if args.output.startswith("file:") \
         else args.output
-    sink = FileSink(target, args.type, enc.complex_out)
+    sink = NativeFileSink(target, args.type, enc.complex_out)
     frames_done = 0
     block = 0
     try:

@@ -15,8 +15,13 @@ JAX Encoder, since several share a field name: `secam_statics.` +
 device program's constants `r_pow`, `w0_col`, `win_col`, `fid` (the JAX
 package's `_device_consts`); `am_statics.cos_x`, `sin_x`;
 `fm_right_statics.cos_x`, `sin_x`, `fm_right_win.lens_tiled`; and
-`a2_statics.cos1_x`, `sin1_x`, `cos2_x`, `sin2_x`.  `carrier_rows`, a
-(cos, sin) pair of [P, W] tables, travels stacked as one [2, P, W] array.
+`a2_statics.cos1_x`, `sin1_x`, `cos2_x`, `sin2_x`.  The RF tail's statics
+follow the same rule: `offset_statics.` + `cos_x`, `sin_x`, `intro_bi`,
+`intro_bq`; the energy-dispersal frame `_fm_ed_frame`; the phasor LUTs of
+the host-exact FM carriers `fm_exact._lut` (sound) and
+`fm_video_exact._lut` (video); and the host-exact SECAM carrier's LUT
+`_secam_lut`.  `carrier_rows`, a (cos, sin) pair of [P, W] tables,
+travels stacked as one [2, P, W] array.
 
     arrays = statics_to_numpy(enc)          # {name: np.ndarray}
     statics_from_numpy(other_enc, arrays)   # installs them on its device
@@ -38,6 +43,8 @@ SECAM_FIELDS = ("luma_taps", "chroma_taps", "bell_i", "bell_q", "w0_tab",
                 "_win_q")
 SECAM_CONST_FIELDS = ("r_pow", "w0_col", "win_col", "fid")
 A2_FIELDS = ("cos1_x", "sin1_x", "cos2_x", "sin2_x")
+OFFSET_FIELDS = ("cos_x", "sin_x", "intro_bi", "intro_bq")
+FM_EXACT_ATTRS = ("fm_exact", "fm_video_exact")
 
 
 def statics_to_numpy(enc) -> dict:
@@ -82,6 +89,16 @@ def statics_to_numpy(enc) -> dict:
                 enc.fm_right_win.lens_tiled)
         for f in A2_FIELDS:
             out["a2_statics." + f] = host(getattr(enc.a2_statics, f))
+    if enc.offset_statics is not None:
+        for f in OFFSET_FIELDS:
+            out["offset_statics." + f] = host(getattr(enc.offset_statics, f))
+    if enc._fm_ed_frame is not None:
+        out["_fm_ed_frame"] = enc._fm_ed_frame
+    for name in FM_EXACT_ATTRS:
+        if getattr(enc, name) is not None:
+            out[name + "._lut"] = getattr(enc, name)._lut
+    if enc.secam is not None and not enc.secam_device:
+        out["_secam_lut"] = enc._secam_lut
     return out
 
 
@@ -118,7 +135,8 @@ def statics_from_numpy(enc, arrays: dict) -> None:
             f: np.asarray(arrays["secam_statics." + f])
             for f in SECAM_FIELDS})
         enc.secam = secam_mod.to_device(st, dev, consts={
-            f: arrays["secam_statics." + f] for f in SECAM_CONST_FIELDS})
+            f: arrays["secam_statics." + f] for f in SECAM_CONST_FIELDS},
+            large=enc.secam.large)
     for name in ("am_statics", "fm_right_statics"):
         if name + ".cos_x" in arrays:
             fs = getattr(enc, name)
@@ -130,6 +148,20 @@ def statics_from_numpy(enc, arrays: dict) -> None:
         enc.a2_statics = dataclasses.replace(
             enc.a2_statics,
             **{f: t(arrays["a2_statics." + f]) for f in A2_FIELDS})
+    if enc.offset_statics is not None:
+        enc.offset_statics = dataclasses.replace(
+            enc.offset_statics,
+            **{f: t(arrays["offset_statics." + f]) for f in OFFSET_FIELDS})
+    if "_fm_ed_frame" in arrays:
+        enc._fm_ed_frame = np.asarray(arrays["_fm_ed_frame"], np.int16)
+        if enc.fm_video_statics is not None:
+            enc._fm_ed_dev = t(enc._fm_ed_frame.astype(np.int32))
+    for name in FM_EXACT_ATTRS:
+        if name + "._lut" in arrays:
+            getattr(enc, name)._lut = np.ascontiguousarray(
+                arrays[name + "._lut"], np.int32)
+    if "_secam_lut" in arrays:
+        enc._secam_lut = np.ascontiguousarray(arrays["_secam_lut"], np.int32)
     if "pulse" in arrays:
         enc.nicam_statics = dataclasses.replace(
             enc.nicam_statics, **{f: t(arrays[f]) for f in NICAM_FIELDS})

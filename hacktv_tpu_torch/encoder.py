@@ -5,20 +5,32 @@ Port of hacktv_tpu/encoder.py for the raster modes (PAL, NTSC, SECAM and
 monochrome) with the video filter, FM mono and A2 stereo sound, AM sound
 and NICAM-728 (PAL-I, the flagship chain, PAL-B/G, SECAM-L, D/K, NTSC-M +
 VSB `--filter`, the 405-line modes, composite with the low-pass
-`--filter`).  A block of `frames_per_block` whole frames, plus one halo
-line each side for filter continuity, is synthesised as a sequence of
-tensor ops on one device:
+`--filter`), FM video (the satellite modes `pal-fm`, `ntsc-fm`,
+`secam-fm`), and the RF tail every mode shares: swap-IQ, the frequency
+offset and the passthru stream; a raw baseband file may replace the
+raster.  A block of `frames_per_block` whole frames, plus one halo line
+each side for filter continuity, is synthesised as a sequence of tensor
+ops on one device:
 
     raster (video/raster.py) -> SECAM chroma and render (video/secam.py)
     -> stream FIR (ops/stream_fir.py, the CUDA kernel on a card) -> FM
     and A2 sound carriers, AM sound (audio/synth.py) -> NICAM
-    (audio/nicam_dev.py, audio/synth.py) -> int16
+    (audio/nicam_dev.py, audio/synth.py) -> FM video, swap-IQ, offset
+    (rf/ops.py) -> int16 (+ passthru)
+
+FM video runs the reference's serial int32 recurrence on the host
+(runtime.FmCarrierExact, in `collect_block`) unless swap-IQ, the offset
+or passthru follow it; then the device closed form runs
+(rf_ops.fm_video_modulate).  The FM-video modes' sound carrier is the
+host-exact one too, and their SECAM chroma the host-exact path
+(video/secam.py chroma_block_host, carrier_addin_host).
 
 The stream-line counter `k` is the only state: k=0 is the first rendered
 line, (frame 1, line 1), with zero filter history at the stream start.
-The FM phase anchor, the NICAM differential state and the SECAM IIR
-state are device scalars chained block to block, so blocks must be
-encoded in order.
+The FM phase anchor, the FM-video phase, the NICAM differential state
+and the SECAM IIR state are device scalars (the host-exact carriers and
+IIR host state) chained block to block, so blocks must be encoded in
+order.
 
 Metadata, line tables, taps and the audio window bookkeeping stay host
 numpy.  Options that are not ported yet raise NotImplementedError.
@@ -34,6 +46,7 @@ from dataclasses import replace
 import numpy as np
 import torch
 
+from . import runtime
 from .audio import nicam as nicam_mod
 from .audio import nicam_dev
 from .audio import synth as audio_synth
@@ -42,6 +55,7 @@ from .av.testcard import TestCardSource
 from .config.standards import (ColourMode, Modulation, OutputType, VidConfig,
                                get_mode)
 from .ops.stream_fir import stream_fir
+from .rf import ops as rf_ops
 from .video import raster
 from .video import secam as secam_mod
 from .video.params import VideoParams
@@ -63,14 +77,15 @@ class Encoder:
     def __init__(self, mode: str | VidConfig, sample_rate: int,
                  pixel_rate: int = 0, source=None,
                  frames_per_block: int = 1, vfilter: bool = False,
-                 offset: int = 0, devices=None, device="cuda",
-                 fm_direct_trig: bool = False, a2stereo: bool = False,
+                 offset: int = 0, swap_iq: bool = False, devices=None,
+                 device="cuda", fm_direct_trig: bool = False,
+                 a2stereo: bool = False, passthru: str | None = None,
+                 raw_bb_file: str | None = None, raw_bb_blanking: int = 0,
+                 raw_bb_white: int = 0x300,
                  secam_exact: bool | None = None, **unported):
         for name, value in unported.items():
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
-        if offset:
-            raise NotImplementedError("offset is not ported yet")
         if devices is not None:
             raise NotImplementedError("multiple devices are not ported yet")
         if pixel_rate and int(pixel_rate) != int(sample_rate):
@@ -81,8 +96,10 @@ class Encoder:
         self._fm_direct = fm_direct_trig
 
         conf = get_mode(mode) if isinstance(mode, str) else mode
-        if vfilter:
-            conf = replace(conf, vfilter=True)
+        if vfilter or offset or swap_iq:
+            conf = replace(conf, vfilter=conf.vfilter or vfilter,
+                           offset=conf.offset or int(offset),
+                           swap_iq=conf.swap_iq or swap_iq)
         _check_supported(conf)
         self.conf = conf
         self.params = VideoParams.create(conf, sample_rate, 0)
@@ -117,37 +134,103 @@ class Encoder:
         self.complex_out = conf.output_type == OutputType.COMPLEX
         self._init_audio(a2stereo)
 
-        # SECAM chroma (src/video.c:3068-3233) on the device; the IIR's
-        # cross-block carry is an f32 device scalar
+        # FM video modulation (src/video.c:4564-4585).  The reference's
+        # int32 phase recurrence truncation-walks by a content-dependent
+        # ~1e-8 rad/sample that a closed form cannot reproduce, so the
+        # host-exact serial recurrence runs the modulator where nothing
+        # follows it on the device; with swap-IQ, the offset or passthru
+        # the device closed form runs, its phase carry a device scalar
+        self.fm_video_statics = None
+        self.fm_video_exact = None
+        self._fm_ed_frame = None
+        if conf.modulation == Modulation.FM:
+            if not conf.swap_iq and not conf.offset and passthru is None:
+                self.fm_video_exact = runtime.FmCarrierExact(
+                    0.0, conf.fm_deviation, p.sample_rate,
+                    int(round(32767 * conf.fm_level * conf.level)))
+            else:
+                self.fm_video_statics = rf_ops.make_fm_video_statics(
+                    conf.fm_deviation, conf.fm_level * conf.level,
+                    p.sample_rate, conf.lines)
+                self._fm_r = {0: torch.zeros((), dtype=torch.int64,
+                                             device=self.device)}
+            # frame-locked triangular energy dispersal
+            # (src/video.c:4573-4581): exactly one frame long
+            self._fm_ed_frame = rf_ops.fm_energy_dispersal_frame(
+                conf.fm_energy_dispersal, self.out_params.width,
+                conf.lines) if conf.fm_energy_dispersal else None
+            if self._fm_ed_frame is not None \
+                    and self.fm_video_statics is not None:
+                self._fm_ed_dev = torch.as_tensor(
+                    self._fm_ed_frame.astype(np.int32), device=self.device)
+
+        # complex frequency offset (src/video.c:4592-4605)
+        self.offset_statics = None
+        if conf.offset:
+            self.offset_statics = rf_ops.make_offset_statics(
+                conf.offset, p.sample_rate, self.out_params.width,
+                device=self.device)
+
+        # SECAM chroma (src/video.c:3068-3233): the device program by
+        # default, its IIR's cross-block carry an f32 device scalar; the
+        # host-exact path (the native runtime) with secam_exact, the
+        # default of the FM-video modes, whose FM phase would integrate
+        # the device program's rare 1-LSB round flips
         self.secam = None
+        self.secam_device = False
         if conf.colour_mode == ColourMode.SECAM:
-            if secam_exact:
-                raise NotImplementedError(
-                    "secam_exact (the host-exact SECAM chroma through the "
-                    "native runtime) is not ported yet")
-            if conf.secam_field_id:
-                # the field-identification lines' full-span sawtooth takes
-                # the carrier phase past 120 rad, where glibc's sinf/cosf
-                # switch to a reduction that _sincosf_glibc does not have
-                raise NotImplementedError(
-                    "SECAM field-identification lines are not ported yet")
-            self.secam = secam_mod.to_device(secam_mod.make_statics(
-                p, self.vframe_x, source.width), self.device)
+            st = secam_mod.make_statics(p, self.vframe_x, source.width)
+            # the field-identification lines' full-span sawtooth takes the
+            # carrier phase past 120 rad
+            self.secam = secam_mod.to_device(st, self.device,
+                                             large=conf.secam_field_id)
+            if secam_exact is None:
+                secam_exact = conf.modulation == Modulation.FM
+            self.secam_device = not secam_exact
             self._secam_meta_cache: OrderedDict = OrderedDict()
-            self._secam_z = {0: torch.zeros((), dtype=torch.float32,
-                                            device=self.device)}
+            if self.secam_device:
+                self._secam_z = {0: torch.zeros((), dtype=torch.float32,
+                                                device=self.device)}
+            else:
+                # the reference's f64 IIR state (ix, iy), carried across
+                # the stream (src/fir.c:710-740)
+                self._secam_iir = {0: (0.0, 0.0)}
+                self._secam_lut = secam_mod.carrier_lut(st, p.pixel_rate)
+                self._secam_host_cache: dict = {}
+
+        # raw baseband replay (src/video.c:2406-2445) replaces the raster;
+        # passthru (src/video.c:3517-3541) adds an int16 I/Q stream just
+        # before the output
+        self.raw_bb = None
+        if raw_bb_file is not None:
+            self.raw_bb = _RawBBReader(raw_bb_file, p.width, raw_bb_blanking,
+                                       raw_bb_white, p.blanking_level,
+                                       p.white_level)
+        self.passthru = None
+        if passthru is not None:
+            self.passthru = _PassthruReader(passthru)
 
         # Reference output-ring size (src/video.c:3578, 4641-4688): at
         # startup the un-rendered next slots keep width 0 for one ring
         # cycle, so vbidata truncates the forward sync spill of the first
-        # (olines - 1) lines there.  (raster, [SECAM], [vfilter], audio,
+        # (olines - 1) lines there.  (raster or raw baseband, [SECAM],
+        # [vfilter], audio, [FM video], [swap], [offset], [passthru],
         # output)
-        procs = [(3, False)]
+        procs = [(1 if raw_bb_file else 3, False)]
         if self.secam is not None:
             procs.append((1, True))
         if self.vf_taps is not None:
             procs.append((2, True))
-        procs += [(1, True), (1, False)]
+        procs.append((1, True))
+        if conf.modulation == Modulation.FM:
+            procs.append((1, True))
+        if conf.swap_iq:
+            procs.append((1, False))
+        if conf.offset:
+            procs.append((1, True))
+        if self.passthru is not None:
+            procs.append((1, False))
+        procs.append((1, False))
         olines = 0
         prev_thread = True
         for i, (nl, th) in enumerate(procs):
@@ -171,8 +254,16 @@ class Encoder:
         self.fm_statics = None
         self.fm_win = None
         self.fm_dev_held = False
+        self.fm_exact = None
         c = self.audio.fm_mono
-        if c is not None:
+        if c is not None and self.conf.modulation == Modulation.FM:
+            # FM-video (satellite) modes integrate the sound carrier's
+            # sub-LSB truncation bias into a phase ramp, so it is the
+            # reference's int32 recurrence itself, serial on the host
+            # (src/video.c:2218-2276)
+            self.fm_exact = runtime.FmCarrierExact(
+                c.frequency, c.deviation, p.sample_rate, c.level_int)
+        elif c is not None:
             self.fm_statics = audio_synth.make_fm_statics(
                 c.num, c.den, c.level_int, c.kd, p.width, nseg, c.eps,
                 device=dev)
@@ -275,33 +366,41 @@ class Encoder:
                   "repeats each block's first frame", file=sys.stderr)
         # SECAM's u/v are FM frequency offsets in deviation units
         # (src/video.c:3944-3953)
-        yuv = tuple(torch.as_tensor(a, device=self.device)
-                    for a in raster.rgb_to_yuv_host(
-                        self.params, rgb, secam=self.secam is not None))
+        host = raster.rgb_to_yuv_host(self.params, rgb,
+                                      secam=self.secam is not None)
+        yuv = tuple(torch.as_tensor(a, device=self.device) for a in host)
         self._rgb_cache = (rgb, yuv)
+        # the host-exact SECAM chroma reads the host planes
+        self._rgb_host_uv = host[1:]
         return yuv
 
     # ------------------------------------------------------------------
     def _step(self, yuv, m: dict, first: float, audio: dict):
-        """Synthesis + output filter + audio + int16 quantisation for one
-        block of frames (plus halo lines).  Returns (samples, carries):
-        the next block's device scalars by name ("fm_xa", "nicam_dsym",
-        "secam_z")."""
+        """Synthesis + output filter + audio + RF tail + int16
+        quantisation for one block of frames (plus halo lines).  Returns
+        (samples, carries): the next block's device scalars by name
+        ("fm_xa", "nicam_dsym", "secam_z", "fm_r")."""
         p = self.params
         W = p.width
         nlines = self.frames_per_block * p.lines
         n = nlines * W
         carry = {}
 
-        block = raster.synth_block(
-            self.dstatics, yuv, m["base"], m["nxt"], m["burst"],
-            m["vswitch"], m["vy"], m["al"], m["ar"], m["cos0"], m["sin0"],
-            m["lut_row"], m["prv"] if self._use_prv else None)
+        if self.raw_bb is not None:
+            block = audio["rawbb"]
+        else:
+            block = raster.synth_block(
+                self.dstatics, yuv, m["base"], m["nxt"], m["burst"],
+                m["vswitch"], m["vy"], m["al"], m["ar"], m["cos0"],
+                m["sin0"], m["lut_row"], m["prv"] if self._use_prv else None)
         if self.secam is not None:
-            sm, z0 = audio["secam"]
-            add, carry["secam_z"] = secam_mod.device_chroma_carrier(
-                self.secam, sm, yuv[1], yuv[2], z0)
-            block = secam_mod.render(self.secam, block, add, sm)
+            sa = audio["secam"]
+            if self.secam_device:
+                add, carry["secam_z"] = secam_mod.device_chroma_carrier(
+                    self.secam, sa["meta"], yuv[1], yuv[2], sa["z0"])
+            else:
+                add = sa["add"].to(torch.float32)
+            block = secam_mod.render(self.secam, block, add, sa["meta"])
         block[0] *= first
         x = block.reshape(-1)
 
@@ -321,6 +420,8 @@ class Encoder:
             y = x[W: W + n].view(nlines, W)
 
         if not self.has_audio and not self.complex_out:
+            if self.passthru is not None:
+                y = y + audio["passthru"][..., 0]
             return torch.clamp(torch.round(y), -32768, 32767).to(
                 torch.int16), carry
 
@@ -339,6 +440,12 @@ class Encoder:
                 fmargs = self._fm_args(d, self.fm_win, self.fm_statics)
             out_i, out_q = audio_synth.fm_add(self.fm_statics, out_i, out_q,
                                               *fmargs, a2=self._a2)
+        if self.fm_exact is not None:
+            # the host-exact sound carrier of the FM-video modes, int16
+            # (I, Q) per sample
+            fx = audio["fm_exact"]
+            out_i = out_i + fx[..., 0]
+            out_q = out_q + fx[..., 1]
         if self.fm_right_statics is not None:
             pp = audio["a2_pilot"]
             phi_extra = audio_synth.a2_pilot_phase(
@@ -363,14 +470,33 @@ class Encoder:
                 self.nicam_statics, out_i, out_q, signs_i, signs_q,
                 nc["offq"], nc["offr"], nc["cc_off"], audio["nicam_k0mod"])
 
+        if self.fm_video_statics is not None:
+            tri = None
+            if self._fm_ed_frame is not None:
+                tri = self._fm_ed_dev.repeat(self.frames_per_block, 1)
+            out_i, out_q, carry["fm_r"] = rf_ops.fm_video_modulate(
+                self.fm_video_statics, out_i, audio["fm_r0"], tri)
+        if self.conf.swap_iq:
+            out_i, out_q = out_q, out_i
+        if self.offset_statics is not None:
+            o = audio["offset"]
+            out_i, out_q = rf_ops.offset_rotate(
+                self.offset_statics, out_i, out_q, o["c0"], o["s0"],
+                o["nz"], o["k"])
+
         # int16 WRAP, not saturate: every reference mix into the line
         # buffer is a C `int16_t +=` (src/video.c:3261-3450), so an
         # over-range sum wraps.  round() is half to even, as jnp.round.
-        def wrap(v):
-            return ((torch.round(v).to(torch.int32) + 0x8000) & 0xFFFF) \
-                - 0x8000
-        iq = torch.stack([wrap(out_i), wrap(out_q)], dim=-1)
-        return iq.to(torch.int16), carry
+        wrap = lambda v: ((v + 0x8000) & 0xFFFF) - 0x8000
+        ii = wrap(torch.round(out_i).to(torch.int32))
+        qq = wrap(torch.round(out_q).to(torch.int32))
+        if self.passthru is not None:
+            # the reference adds the passthru stream with a plain int16
+            # `+=`, which wraps (src/video.c:3517-3541)
+            pt = audio["passthru"].to(torch.int32)
+            ii = wrap(ii + pt[..., 0])
+            qq = wrap(qq + pt[..., 1])
+        return torch.stack([ii, qq], dim=-1).to(torch.int16), carry
 
     def _fm_args(self, d: dict, fw, st) -> tuple:
         """fm_add's segment arguments of a host-held FM carrier: assembled
@@ -411,7 +537,14 @@ class Encoder:
         # filter's one-line-delayed stream, so the audio timeline runs one
         # line ahead of the output line it lands on (src/video.c:4675-4688)
         a_k0 = k0 + (1 if self.conf.vfilter else 0)
+        dev = self.device
         args = {}
+        if self.raw_bb is not None:
+            args["rawbb"] = torch.as_tensor(self.raw_bb.block(
+                k0 - 1, nlines + 1 + self.halo_after), device=dev)
+        if self.passthru is not None:
+            args["passthru"] = torch.as_tensor(self.passthru.block(
+                k0, nlines, self.out_params.width), device=dev)
         if self.fm_dev_held:
             c = self.audio.fm_mono
             if not self._fm_xa_started and block_no not in self._fm_xa:
@@ -441,6 +574,9 @@ class Encoder:
         elif self.fm_statics is not None:
             args["fm_mono"] = self._host_fm(self.audio.fm_mono, a_k0, nlines,
                                             self.fm_win)
+        if self.fm_exact is not None:
+            args["fm_exact"] = torch.as_tensor(
+                self._fm_exact_block(a_k0, nlines), device=dev)
         if self.fm_right_statics is not None:
             args["fm_right"] = self._host_fm(self.audio.fm_right, a_k0,
                                              nlines, self.fm_right_win)
@@ -460,34 +596,83 @@ class Encoder:
                 nc[k] = torch.as_tensor(nc[k], device=self.device)
             args["nicam"] = nc
             args["nicam_k0mod"] = a_k0 % self.nicam_statics.period
+        if self.fm_video_statics is not None:
+            if block_no not in self._fm_r:
+                raise RuntimeError(
+                    "FM-modulated blocks must be encoded sequentially "
+                    f"(no phase carry for block {block_no})")
+            args["fm_r0"] = self._fm_r[block_no]
         if self.secam is not None:
             args["secam"] = self._secam_args(block_no)
+        if self.offset_statics is not None:
+            c0, s0, nz = rf_ops.offset_rotation(
+                self.conf.offset, self.params.sample_rate, k0,
+                self.out_params.width, nlines)
+            k = np.maximum(np.arange(k0, k0 + nlines), 0).astype(np.int32)
+            args["offset"] = {name: torch.as_tensor(a, device=dev) for name, a
+                              in (("c0", c0), ("s0", s0), ("nz", nz),
+                                  ("k", k))}
         return args
 
-    def _secam_args(self, block_no: int):
-        """The block's SECAM metadata on the device and the IIR carry.
-        The per-line metadata is periodic in the stream line with period
-        6 frames (dr parity: 2, carrier phase sign: 3); block 0 is special
-        (clamped pre-stream rows).  Building a new key is a Python loop
-        over the block's lines."""
+    def _fm_exact_block(self, a_k0: int, nlines: int) -> np.ndarray:
+        """The host-exact sound carrier of an FM-video mode for the
+        block's output samples, int16 [nlines, W, 2]; skipped samples
+        (before the first block, or a seek forward) advance the carrier
+        without output, a seek back restarts it."""
+        W = self.out_params.width
+        n0, n1 = a_k0 * W, (a_k0 + nlines) * W
+        fx = self.fm_exact
+        c = self.audio.fm_mono
+        if n0 < fx.n:
+            fx.reset()
+        if fx.n < n0:
+            fx.process(self.audio.fm_exact_stream(c, fx.n, n0), fx.n,
+                       emit=False)
+        out = fx.process(self.audio.fm_exact_stream(c, n0, n1), n0)
+        return out.view(np.int16).reshape(nlines, W, 2)
+
+    def _secam_args(self, block_no: int) -> dict:
+        """The block's SECAM metadata on the device ("meta"), and the IIR
+        carry ("z0") of the device program or the host-exact carrier
+        add-in ("add").  The per-line metadata is periodic in the stream
+        line with period 6 frames (dr parity: 2, carrier phase sign: 3);
+        block 0 is special (clamped pre-stream rows).  Building a new key
+        is a Python loop over the block's lines."""
         nlines = self.frames_per_block * self.params.lines
         k0 = block_no * nlines
         key = k0 % (6 * self.conf.lines) if k0 > 0 else -1
-        sm = self._secam_meta_cache.get(key)
-        if sm is not None:
+        hit = self._secam_meta_cache.get(key)
+        if hit is not None:
             self._secam_meta_cache.move_to_end(key)
         else:
             nm = secam_mod.block_meta(
                 self.params, k0 - 1, nlines + 1 + self.halo_after, nlines,
                 self.vframe_y, self.source.height)
-            sm = secam_mod.meta_to_device(nm, self.device)
+            hit = (nm, secam_mod.meta_to_device(nm, self.device))
             while len(self._secam_meta_cache) > 64:
                 self._secam_meta_cache.popitem(last=False)
-            self._secam_meta_cache[key] = sm
-        if block_no not in self._secam_z:
+            self._secam_meta_cache[key] = hit
+        nm, sm = hit
+        if self.secam_device:
+            if block_no not in self._secam_z:
+                raise RuntimeError(
+                    "SECAM blocks must be encoded sequentially "
+                    f"(no IIR carry for block {block_no})")
+            return {"meta": sm, "z0": self._secam_z[block_no]}
+        if block_no not in self._secam_iir:
             raise RuntimeError("SECAM blocks must be encoded sequentially "
-                               f"(no IIR carry for block {block_no})")
-        return sm, self._secam_z[block_no]
+                               f"(no IIR state for block {block_no})")
+        st = self.secam.st
+        W = self.out_params.width
+        u, v = self._rgb_host_uv
+        chroma, snap, _ = secam_mod.chroma_block_host(
+            st, W, nm, u, v, k0 - 1, k0 + nlines - 1,
+            self._secam_iir[block_no], cache=self._secam_host_cache)
+        self._secam_iir[block_no + 1] = snap
+        self._secam_iir.pop(block_no - 2, None)
+        add = secam_mod.carrier_addin_host(st, W, nm, chroma,
+                                           self._secam_lut)
+        return {"meta": sm, "add": torch.as_tensor(add, device=self.device)}
 
     def _nicam_dev_fn(self, *a):
         """signs_device on this encoder's statics (the seek catch-up)."""
@@ -505,9 +690,13 @@ class Encoder:
             self._fm_xa[block_no + 1][1] = carry["fm_xa"]
         if self.nicam_statics is not None:
             self.audio.nicam_dev_dsym(carry["nicam_dsym"])
-        if self.secam is not None:
+        if self.secam_device:
             self._secam_z[block_no + 1] = carry["secam_z"]
             self._secam_z.pop(block_no - 2, None)
+        if self.fm_video_statics is not None:
+            # a device scalar: the next block chains on it without a sync
+            self._fm_r[block_no + 1] = carry["fm_r"]
+            self._fm_r.pop(block_no - 2, None)
         return out
 
     @property
@@ -524,8 +713,28 @@ class Encoder:
     def collect_block(self, block_no: int, dev: torch.Tensor) -> np.ndarray:
         """Device tensor -> host int16 samples.  Splitting dispatch
         (encode_block_device) from collection lets a caller overlap the
-        copy of block b with the device compute of block b+1."""
+        copy of block b with the device compute of block b+1.  For FM
+        video on the host, the FM recurrence runs here over the
+        composite (the I channel), so blocks must be collected in
+        order."""
         a = dev.cpu().numpy()
+        if self.fm_video_exact is not None:
+            comp = np.ascontiguousarray(a[..., 0]).reshape(-1)
+            if self._fm_ed_frame is not None:
+                # the frame-locked triangle, added with int16 wrap
+                # (src/video.c:2303) before the FM recurrence
+                t = np.tile(self._fm_ed_frame.reshape(-1),
+                            self.frames_per_block)
+                comp = (((comp.astype(np.int32) + t + 0x8000) & 0xFFFF)
+                        - 0x8000).astype(np.int16)
+            fx = self.fm_video_exact
+            n0 = block_no * comp.size
+            if n0 < fx.n:
+                fx.reset()
+            if fx.n < n0:
+                raise RuntimeError("FM blocks must be collected "
+                                   "sequentially")
+            return fx.process(comp, n0).view(np.int16).reshape(-1, 2)
         if a.ndim == 3:
             return a.reshape(-1, 2)
         return a.reshape(-1)
@@ -544,12 +753,68 @@ def _check_supported(conf: VidConfig) -> None:
                                 ColourMode.SECAM, ColourMode.MONOCHROME):
         raise NotImplementedError(
             f"colour mode {conf.colour_mode.name} is not ported yet")
-    if conf.modulation == Modulation.FM:
-        raise NotImplementedError("FM video modes are not ported yet")
     if conf.s_video:
         raise NotImplementedError("S-Video is not ported yet")
     if conf.frame_orientation:
         raise NotImplementedError("rotated frame orientations are not "
                                   "ported yet")
-    if conf.offset or conf.swap_iq:
-        raise NotImplementedError("offset and swap_iq are not ported yet")
+
+
+class _RawBBReader:
+    """Looping int16 raw-baseband line source (src/video.c:2406-2445).
+
+    Absolute sample n of the stream maps to file sample n mod T: the
+    reference freads and rewinds at EOF with no line alignment, so the
+    file cycles at sample granularity.  The samples are rescaled to the
+    mode's blanking..white range with C integer division."""
+
+    def __init__(self, path: str, width: int, rbb_blanking: int,
+                 rbb_white: int, blanking_level: int, white_level: int):
+        self.data = np.fromfile(path, dtype=np.int16)
+        if len(self.data) == 0:
+            raise ValueError(f"{path}: empty raw baseband file")
+        self.W = width
+        self.num = white_level - blanking_level
+        self.den = rbb_white - rbb_blanking
+        self.rbb_blanking = rbb_blanking
+        self.blanking_level = blanking_level
+
+    def block(self, k0: int, nlines: int) -> np.ndarray:
+        """f32 [nlines, W] for stream lines [k0, k0 + nlines)."""
+        n0 = max(k0, 0) * self.W
+        idx = (n0 + np.arange(nlines * self.W, dtype=np.int64)) \
+            % len(self.data)
+        raw = self.data[idx].astype(np.int64)
+        # C integer division truncates toward zero
+        num = (raw - self.rbb_blanking) * self.num
+        q = np.sign(num) * (np.abs(num) // abs(self.den)) * np.sign(self.den)
+        out = self.blanking_level + q
+        # int16 assignment wraps
+        out = ((out + 0x8000) & 0xFFFF) - 0x8000
+        block = out.reshape(nlines, self.W).astype(np.float32)
+        if k0 < 0:
+            block[:-k0] = block[0]   # halo before the stream start: line 0
+        return block
+
+
+class _PassthruReader:
+    """Sequential int16 I/Q add-stream (src/video.c:3517-3541): zeros
+    after EOF (the reference stops adding)."""
+
+    def __init__(self, path: str):
+        self.f = open(path, "rb")
+        self.eof = False
+
+    def block(self, k0: int, nlines: int, width: int) -> np.ndarray:
+        """int16 [nlines, width, 2]: the next nlines * width pairs."""
+        n = nlines * width
+        out = np.zeros((n, 2), dtype=np.int16)
+        if not self.eof:
+            raw = np.frombuffer(self.f.read(n * 4), dtype=np.int16)
+            if len(raw) < n * 2:
+                self.eof = True
+                # a partial final line is dropped, like the reference's
+                # short fread (src/video.c:3529-3532)
+                raw = raw[: (len(raw) // (width * 2)) * width * 2]
+            out[: len(raw) // 2] = raw.reshape(-1, 2)
+        return out.reshape(nlines, width, 2)

@@ -1,0 +1,206 @@
+"""The native host runtime (native/hacktv_rt.cpp), built and bound by the
+port itself.
+
+Port of the parts of hacktv_tpu/runtime that the port calls: the exact
+serial FM carrier (`FmCarrierExact`, the reference's int32 phasor
+recurrence), the SECAM host-exact chroma kernels (`rt_fir_block_i16`,
+`rt_iir1_exact_i16`, `rt_secam_carrier_exact`, called from
+video/secam.py) and the threaded file sink (`NativeFileSink`).
+
+The library is compiled from the repo's `native/hacktv_rt.cpp` with g++
+(the flags of native/Makefile) into `hacktv_tpu_torch/_build/` at first
+use, to a temporary file renamed into place so that concurrent processes
+never load a half-written library, and rebuilt when older than its source.
+Nothing is written into `native/`.  A missing compiler, a failed build or
+a failed load raises: no caller falls back to another path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import numpy as np
+
+from .ops.cuda_build import BUILD_DIR
+
+SRC_PATH = os.path.abspath(os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), os.pardir, "native",
+    "hacktv_rt.cpp"))
+LIB_PATH = os.path.join(BUILD_DIR, "libhacktv_rt.so")
+CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
+
+SINK_FIFO_BYTES = 64 << 20     # the file sink's queue between the threads
+# rt_type enum (native/hacktv_rt.cpp)
+TYPE_IDS = {"uint8": 0, "int8": 1, "uint16": 2, "int16": 3, "int32": 4,
+            "float": 5}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _stale() -> bool:
+    return not (os.path.exists(LIB_PATH)
+                and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SRC_PATH))
+
+
+def build() -> bool:
+    """Compile the library if it is missing or older than its source;
+    True if this call compiled it.  One process compiles at a time (a lock
+    file beside the library); the result is renamed into place."""
+    if not _stale():
+        return False
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native runtime is built from "
+                           "native/hacktv_rt.cpp at first use")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".hacktv_rt.lock"), "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        if not _stale():             # another process built it meanwhile
+            return False
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            r = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SRC_PATH],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError("g++ failed on native/hacktv_rt.cpp:\n"
+                                   + r.stderr[-4000:])
+            os.replace(tmp, LIB_PATH)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return True
+
+
+def load() -> ctypes.CDLL:
+    """The loaded native runtime, built if needed; raises on failure."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIB_PATH)
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def _declare(lib) -> None:
+    c = ctypes
+    p = c.c_void_p
+    lib.rt_fm_carrier_exact.restype = None
+    lib.rt_fm_carrier_exact.argtypes = [p, p, c.c_size_t, p, c.c_int32, p]
+    lib.rt_fir_block_i16.restype = None
+    lib.rt_fir_block_i16.argtypes = [p, c.c_long, c.c_long, p, c.c_long, p,
+                                     c.c_int]
+    lib.rt_iir1_exact_i16.restype = None
+    lib.rt_iir1_exact_i16.argtypes = [p, c.c_size_t, c.c_double,
+                                      c.c_double, c.c_double, p, p]
+    lib.rt_secam_carrier_exact.restype = None
+    lib.rt_secam_carrier_exact.argtypes = [
+        p, c.c_long, c.c_long, c.c_long, p, p, p, p, c.c_int32, p, p,
+        c.c_int]
+    lib.rt_file_sink_open.restype = p
+    lib.rt_file_sink_open.argtypes = [c.c_char_p, c.c_int, c.c_int,
+                                      c.c_size_t]
+    lib.rt_file_sink_write.restype = c.c_long
+    lib.rt_file_sink_write.argtypes = [p, p, c.c_size_t]
+    lib.rt_file_sink_close.restype = c.c_long
+    lib.rt_file_sink_close.argtypes = [p]
+
+
+def ptr(a: np.ndarray):
+    """A contiguous numpy array's data pointer for a ctypes call."""
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def threads() -> int:
+    """Worker threads for the native row-parallel kernels."""
+    return min(8, os.cpu_count() or 1)
+
+
+class FmCarrierExact:
+    """The reference's exact FM carrier generator (src/video.c:2218-2276):
+    the int32 phase times a quantised per-sample-value LUT phasor,
+    truncating >>31 multiplies, an atan2 renormalisation every 32767
+    samples.  Stateful and strictly sequential in the absolute
+    output-sample index."""
+
+    def __init__(self, frequency: float, deviation: float,
+                 sample_rate: int, level_int: int):
+        self._lib = load()
+        r = np.arange(-32768, 32768, dtype=np.float64)
+        d = 2.0 * np.pi / sample_rate * (frequency + r / 32767.0
+                                         * deviation)
+        M = 2147483647.0
+
+        def lround(x):
+            return np.where(x >= 0, np.floor(x + 0.5),
+                            -np.floor(-x + 0.5))
+        lut = np.empty((65536, 2), np.int32)
+        lut[:, 0] = lround(np.cos(d) * M)
+        lut[:, 1] = lround(np.sin(d) * M)
+        self._lut = np.ascontiguousarray(lut)
+        self.level = int(level_int)
+        # [phase_i, phase_q, counter] (src/video.c:2223-2226)
+        self._state = np.array([2147483647, 0, 32767], np.int64)
+        self.n = 0           # absolute sample index of the state
+
+    def process(self, samples: np.ndarray, n0: int,
+                emit: bool = True) -> np.ndarray | None:
+        """The packed int32 (i | q << 16) carrier for output samples
+        [n0, n0 + len).  n0 must continue the stream; a rewind restarts
+        from sample 0 (the caller re-feeds the prefix with emit=False)."""
+        if n0 != self.n:
+            raise ValueError(f"carrier stream discontinuity: {n0} != "
+                             f"{self.n}")
+        samples = np.ascontiguousarray(samples, np.int16)
+        out = np.empty(len(samples), np.int32) if emit else None
+        self._lib.rt_fm_carrier_exact(
+            ptr(self._state), ptr(samples), len(samples), ptr(self._lut),
+            self.level, ptr(out) if emit else None)
+        self.n += len(samples)
+        return out
+
+    def reset(self) -> None:
+        self._state[:] = (2147483647, 0, 32767)
+        self.n = 0
+
+
+class NativeFileSink:
+    """Threaded file sink: the sample-format conversion and buffered write
+    run off the calling thread (rt_file_sink_*)."""
+
+    def __init__(self, path: str, dtype: str = "int16",
+                 complex_out: bool = True):
+        self._lib = load()
+        self._h = self._lib.rt_file_sink_open(
+            path.encode(), TYPE_IDS[dtype], 1 if complex_out else 0,
+            SINK_FIFO_BYTES)
+        if not self._h:
+            raise OSError(f"cannot open sink {path!r}")
+
+    def write(self, iq: np.ndarray) -> None:
+        """`iq`: int16 [n, 2] interleaved I/Q."""
+        iq = np.ascontiguousarray(iq, np.int16)
+        if self._lib.rt_file_sink_write(self._h, ptr(iq), iq.size // 2) < 0:
+            raise OSError("sink write failed")
+
+    def close(self) -> None:
+        if self._h:
+            r = self._lib.rt_file_sink_close(self._h)
+            self._h = None
+            if r < 0:
+                raise OSError("sink close reported IO error")
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

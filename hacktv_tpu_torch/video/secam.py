@@ -20,9 +20,14 @@ Bit for bit the JAX encoder on its CPU backend, where this program runs
 inside the encoder's one compiled step: cos/sin are glibc's
 (`synth._sincosf_glibc`), and each product that XLA's CPU compiler fuses
 into the following add is fused here (`synth.fma32`); every other
-product is rounded on its own.  The host-exact chroma path of the JAX
-package (`chroma_block_host`, `carrier_addin_host`, through its native
-runtime) is not ported: the port has no loader for that library yet.
+product is rounded on its own.  With the field-identification lines the
+carrier phase passes 120 rad, where glibc's large-argument reduction
+runs (`SecamDevice.large`).
+
+The host-exact path (`chroma_block_host`, `carrier_addin_host`) runs the
+reference's serial stages in the native runtime (runtime.py): the
+encoder's `secam_exact`, and the default of the FM-video SECAM modes,
+where a 1-LSB chroma difference would integrate into the FM phase.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import runtime
 from ..audio.synth import _sincosf_glibc, fma32
 from ..config.standards import (SECAM_CB_FREQ, SECAM_CR_FREQ, SECAM_FM_DEV,
                                 SECAM_FM_FREQ)
@@ -158,7 +164,7 @@ def _bell_table(comp: int) -> np.ndarray:
     """The reference's fm_secam_bell LUT entry `comp` for every int16
     chroma value (double math + lround, src/video.c:2172-2185,
     4122-4128).  The device program evaluates the bell analytically;
-    the table stays as the reference's definition of it."""
+    the host-exact carrier (carrier_addin_host) looks it up here."""
     r = np.arange(-32768, 32768, dtype=np.float64)
     f = SECAM_FM_FREQ + r * SECAM_FM_DEV / INT16_MAX
     f0 = 4.286e6
@@ -328,12 +334,16 @@ class SecamDevice:
     w0_col: torch.Tensor        # f32 [W]
     win_col: torch.Tensor       # f32 [W]
     fid: torch.Tensor           # f32 [2, W]
+    # the carrier phase can pass 120 rad (the field-ID lines): cos/sin
+    # take glibc's large-argument reduction too
+    large: bool = False
 
 
-def to_device(st: SecamStatics, device, consts: dict | None = None
-              ) -> SecamDevice:
+def to_device(st: SecamStatics, device, consts: dict | None = None,
+              large: bool = False) -> SecamDevice:
     """The device program's statics on `device`; `consts` replaces the
-    constants that device_consts(st) would build (convert.py)."""
+    constants that device_consts(st) would build (convert.py); `large`
+    marks phases past 120 rad (SecamDevice.large)."""
     dc = consts if consts is not None else device_consts(st, st.width)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     tq = np.round(np.asarray(st.chroma_taps, np.float64) * 32768.0
@@ -346,7 +356,7 @@ def to_device(st: SecamStatics, device, consts: dict | None = None
         st=st, chroma_tq=tuple(int(v) for v in tq),
         luma_w=t(lq[::-1].astype(np.float64)).view(1, 1, -1),
         r_pow=t(dc["r_pow"]), w0_col=t(dc["w0_col"]),
-        win_col=t(dc["win_col"]), fid=t(dc["fid"]))
+        win_col=t(dc["win_col"]), fid=t(dc["fid"]), large=large)
 
 
 def meta_to_device(nm: dict, device) -> dict:
@@ -466,7 +476,7 @@ def device_chroma_carrier(sd: SecamDevice, meta: dict, u: torch.Tensor,
                      dtype=torch.int32)
     # w0_col + kd*S, fused; S < 2^24 is exact in f32
     phase = fma32(S.to(f32), float(np.float32(st.kd)), sd.w0_col[None, :])
-    sin, cos = _sincosf_glibc(phase)
+    sin, cos = _sincosf_glibc(phase, large=sd.large)
     sign = torch.where(meta["phase_pos"] > 0, 1.0, -1.0)[:, None]
     pi_ = torch.clamp(torch.floor(sign * cos * 32768.0), max=32767.0)
     pq_ = torch.clamp(torch.floor(sign * sin * 32768.0), max=32767.0)
@@ -496,6 +506,148 @@ def device_chroma_carrier(sd: SecamDevice, meta: dict, u: torch.Tensor,
     m = torch.floor(vi * gi * inv15) - torch.floor(vq * gq * inv15)
     o = torch.floor(m * sd.win_col[None, :] * inv15)
     return torch.where(span, o, 0.0), z_snap
+
+
+def chroma_block_host(st: SecamStatics, W: int, meta: dict,
+                      u: np.ndarray, v: np.ndarray, k_first: int,
+                      k_snapshot: int, state, cache: dict | None = None):
+    """Host-exact SECAM chroma baseband for one block's rows, through the
+    native runtime.
+
+    The reference bit for bit: vertical averaging with C truncation
+    (src/video.c:3149-3196), the Q15 chroma FIR with int32 accumulate
+    >>15 (src/fir.c:342-346, rt_fir_block_i16), the order-1 HF
+    pre-emphasis IIR in f64 with the stream-carried (ix, iy) state
+    (src/fir.c:710-740, rt_iir1_exact_i16), lround and the deviation
+    clamps.  Rows with stream index < 0 (block 0's leading halo) emit
+    zeros and do not advance the IIR.  The stage before the IIR depends
+    only on the source planes and the line-number phase, so with `cache`
+    it is kept per (planes, phase).  Returns (chroma int16 [B, W], the
+    IIR state at stream line k_snapshot, the state after the block)."""
+    B = len(meta["dr"])
+    H, fw = u.shape
+    ks = k_first + np.arange(B)
+    rows = np.nonzero((meta["active"] > 0) & (ks >= 0))[0]
+    out = np.zeros((B, W), dtype=np.int16)
+    if len(rows) == 0:
+        return out, state, state
+
+    ckey = None
+    if cache is not None:
+        ckey = (id(u), id(v), k_first % (2 * 625), B)
+        hit = cache.get(ckey)
+        if hit is not None:
+            return _chroma_iir_finish(st, out, rows, ks, hit[0], hit[1],
+                                      k_snapshot, state)
+
+    # gather + vertical average for all active rows at once (one index
+    # into the stacked U/V planes; f32 is exact for int16 values)
+    dr = meta["dr"][rows] > 0
+    blackv = np.where(dr, st.v_black, st.u_black).astype(np.float32)
+    P = np.concatenate([
+        np.asarray(u, np.float32), np.full((1, fw), st.u_black, np.float32),
+        np.asarray(v, np.float32), np.full((1, fw), st.v_black, np.float32)])
+    off = np.where(dr, H + 1, 0)
+    vy, vyp = meta["vy"][rows], meta["vy_prev"][rows]
+    cur = P[np.where((vy >= 0) & (vy < H), vy, H) + off]
+    prv = P[np.where((vyp >= 0) & (vyp < H), vyp, H) + off] \
+        * (meta["prev_has"][rows] > 0)[:, None].astype(np.float32)
+    avg = np.trunc((cur + prv) * np.float32(0.5))
+
+    lines = np.empty((len(rows), W), np.int16)
+    lines[:] = blackv[:, None].astype(np.int16)
+    lines[:, st.col0:st.col0 + fw] = avg
+    fid = meta["field_id"][rows]
+    if fid.any():
+        # field-ID sawtooth (src/video.c:3101-3136): level + dev*t with
+        # t = clip((x - active_left)/rate/rw, 0, 1); C assignment to int16
+        # truncates toward zero
+        x = np.arange(W, dtype=np.float64) - st.active_left
+        for comp, rw in ((True, 15e-6), (False, 18e-6)):
+            rsel = fid & (dr == comp)
+            if not rsel.any():
+                continue
+            t = np.clip(x / st.pixel_rate / rw, 0.0, 1.0)
+            level = st.v_black if comp else st.u_black
+            dev = st.fsync_level if comp else -st.fsync_level
+            lines[rsel] = np.trunc(level + dev * t).astype(np.int16)
+    # the Q15 FIR with zero edges, threaded over the rows
+    taps = np.ascontiguousarray(np.round(
+        np.asarray(st.chroma_taps, np.float64) * 32768.0).astype(np.int32))
+    f = np.empty((len(rows), W), np.int16)
+    runtime.load().rt_fir_block_i16(
+        runtime.ptr(lines), len(rows), W, runtime.ptr(taps), len(taps),
+        runtime.ptr(f), runtime.threads())
+    if ckey is not None:
+        if len(cache) > 4:
+            cache.clear()
+        # the planes stay referenced so that their ids are not reused
+        # while the entry lives
+        cache[ckey] = (f, dr, u, v)
+    return _chroma_iir_finish(st, out, rows, ks, f, dr, k_snapshot, state)
+
+
+def _chroma_iir_finish(st, out, rows, ks, f, dr, k_snapshot, state):
+    """The serial f64 IIR over the FIR output of the active rows, in
+    stream order, snapshotting its state before stream line k_snapshot;
+    then the deviation clamps."""
+    lib = runtime.load()
+    W = out.shape[1]
+    n_act = len(rows)
+    iir_state = np.array(state, np.float64)
+    yq = np.empty((n_act, W), np.int16)
+    n_before = int(np.searchsorted(ks[rows], k_snapshot))
+    if n_before:
+        lib.rt_iir1_exact_i16(runtime.ptr(f), n_before * W, _IIR_B0,
+                              _IIR_B1, _IIR_A1, runtime.ptr(iir_state),
+                              runtime.ptr(yq))
+    snap = (float(iir_state[0]), float(iir_state[1]))
+    if n_before < n_act:
+        f2 = f.reshape(-1)[n_before * W:]
+        y2 = yq.reshape(-1)[n_before * W:]
+        lib.rt_iir1_exact_i16(runtime.ptr(f2), (n_act - n_before) * W,
+                              _IIR_B0, _IIR_B1, _IIR_A1,
+                              runtime.ptr(iir_state), runtime.ptr(y2))
+    dmin = np.where(dr, st.dmin[1], st.dmin[0]).astype(np.int16)
+    dmax = np.where(dr, st.dmax[1], st.dmax[0]).astype(np.int16)
+    np.clip(yq, dmin[:, None], dmax[:, None], out=yq)
+    out[rows] = yq
+    return out, snap, (float(iir_state[0]), float(iir_state[1]))
+
+
+def carrier_lut(st: SecamStatics, pixel_rate: int) -> np.ndarray:
+    """The reference's per-chroma-value int32 phasor LUT
+    (src/video.c:2234-2240, built for the SECAM cgain modulator)."""
+    r = np.arange(-32768, 32768, dtype=np.float64)
+    d = 2.0 * np.pi / pixel_rate * (SECAM_FM_FREQ
+                                    + r * SECAM_FM_DEV / INT16_MAX)
+    M = 2147483647.0
+    q = lambda x: np.where(x >= 0, np.floor(x + 0.5), -np.floor(-x + 0.5))
+    lut = np.empty((65536, 2), np.int32)
+    lut[:, 0] = q(np.cos(d) * M)
+    lut[:, 1] = q(np.sin(d) * M)
+    return np.ascontiguousarray(lut)
+
+
+def carrier_addin_host(st: SecamStatics, W: int, meta: dict,
+                       chroma: np.ndarray, lut: np.ndarray) -> np.ndarray:
+    """The exact SECAM chroma carrier add-in, int16 [B, W], from the
+    native per-line int32 recurrence (rt_secam_carrier_exact)."""
+    B = chroma.shape[0]
+    sl = st.burst_left
+    sr = np.where(meta["active"] > 0,
+                  np.where(meta["half_only"] > 0, st.half_width,
+                           sl + st.burst_len), 0).astype(np.int32)
+    sign = np.where(meta["phase_pos"] > 0, 1, -1).astype(np.int8)
+    bell = np.ascontiguousarray(np.stack([st.bell_i, st.bell_q], axis=-1))
+    ch = np.ascontiguousarray(chroma, dtype=np.int16)
+    win = np.ascontiguousarray(st._win_q, dtype=np.int16)
+    out = np.empty((B, W), np.int16)
+    p = runtime.ptr
+    runtime.load().rt_secam_carrier_exact(
+        p(ch), B, W, sl, p(sr), p(sign), p(lut), p(bell), st.level_int,
+        p(win), p(out), runtime.threads())
+    return out
 
 
 def _line_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

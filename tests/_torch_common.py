@@ -5,6 +5,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import fcntl
+import os
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -56,3 +60,25 @@ def error_report(got: np.ndarray, ref: np.ndarray):
     sig = float(np.sum(r.astype(np.float64) ** 2))
     snr = np.inf if noise == 0 else 10.0 * np.log10(sig / noise)
     return snr, int(np.abs(d).max()), int(np.count_nonzero(d))
+
+
+def jax_runtime():
+    """The JAX package's native runtime, loaded before any JAX encoder that
+    uses it is built.  Its loader builds the library into native/ with
+    make, and test processes running side by side may build it at the
+    same time; a load that meets a half-written library is retried (the
+    loader keeps its first error, so that is cleared first).  A JAX
+    FM-video encoder whose runtime failed to load would quietly take its
+    device closed form instead of the host-exact path it is compared
+    with."""
+    from hacktv_tpu import runtime as jrt
+    lock = os.path.join(tempfile.gettempdir(), "hacktv_rt_test_build.lock")
+    with open(lock, "w") as lk:
+        fcntl.flock(lk, fcntl.LOCK_EX)
+        for _ in range(5):
+            try:
+                return jrt.load()
+            except Exception:
+                jrt._load_error = None
+                time.sleep(2)
+        return jrt.load()

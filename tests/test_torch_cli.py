@@ -84,7 +84,7 @@ def test_cli_noaudio_and_type(tmp_path):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--teletext", "x"], SystemExit),          # switch not in the subset
-    (["-m", "secam-fm"], NotImplementedError),  # FM video
+    (["-m", "d2mac-fm"], NotImplementedError),  # MAC
     (["-m", "pal", "clip.mp4"], NotImplementedError),
 ])
 def test_cli_refuses(argv, exc, tmp_path):

@@ -1,8 +1,9 @@
 """Card-only checks of the port: the CUDA kernels against their plain
-versions (bit for bit); the NICAM coder and pulse synthesis, the SECAM
-chroma program, the AM carrier, the A2 pilot phase and the encoder on the
-card against their CPU path (byte for byte).  They skip without an NVIDIA
-card.  The file imports neither jax nor hacktv_tpu, so on a machine
+versions (bit for bit, the FM pre-emphasis filter's 67 and 71 taps
+included); the NICAM coder and pulse synthesis, the SECAM chroma program,
+the AM carrier, the A2 pilot phase, FM video's closed form, the offset
+rotation and the encoder on the card against their CPU path (byte for
+byte).  They skip without an NVIDIA card.  The file imports neither jax nor hacktv_tpu, so on a machine
 without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -10,17 +11,22 @@ without JAX it runs alone:
 
 from __future__ import annotations
 
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
 
 import _torch_common as tc
-from hacktv_tpu_torch import Encoder
+from hacktv_tpu_torch import Encoder, get_mode
 from hacktv_tpu_torch.audio import nicam_dev, synth
 from hacktv_tpu_torch.av.noise import NoiseSource
+from hacktv_tpu_torch.mux import MuxEncoder
 from hacktv_tpu_torch.ops import stream_fir as sf
+from hacktv_tpu_torch.rf import ops as rf_ops
 from hacktv_tpu_torch.video import raster
 from hacktv_tpu_torch.video import secam
+from hacktv_tpu_torch.video.params import VideoParams
 
 pytestmark = pytest.mark.cuda
 
@@ -200,6 +206,84 @@ def test_secam_a2_encoder_card_matches_cpu(cuda, mode, kw):
     src = NoiseSource(probe.params.active_width, probe.conf.active_lines)
     g = Encoder(mode, 16_000_000, source=src, device=cuda, **kw)
     c = Encoder(mode, 16_000_000, source=src, device="cpu", **kw)
+    for b in range(3):
+        snr, maxerr, ndiff = tc.error_report(g.encode_block(b),
+                                             c.encode_block(b))
+        msg = f"{mode} block {b}: {snr:.1f} dB, max {maxerr}, {ndiff} differ"
+        assert ndiff == 0, msg
+
+
+@pytest.mark.parametrize("branch", ["taps", "other"])
+@pytest.mark.parametrize("mode,nt", [("pal-fm", 67), ("ntsc-fm", 71)])
+def test_preemph_fir_real_equal_plain(cuda, mode, nt, branch):
+    """fir_real with the CCIR-405 pre-emphasis taps at 20.25 MS/s (the
+    kernel's run-time tap loop) on two frames of an encoder-like stream,
+    and with the first tap pair changed to take the other first-step
+    branch: equal to its plain version."""
+    p = VideoParams.create(replace(get_mode(mode), vfilter=True),
+                           20_250_000, 0)
+    taps = torch.as_tensor(p.vfilter_taps).clone()
+    assert taps.shape[0] == nt
+    if branch == "other":
+        r0, r1 = float(taps[-1]), float(taps[-2])
+        taps[-1] = -abs(r0) if not sf.fuse_second(r0, r1) else abs(r0)
+        taps[-2] = abs(r1) or 0.01
+    W, half = p.width, nt // 2
+    n = 2 * p.conf.lines * W
+    g = torch.Generator(device=cuda).manual_seed(nt)
+    x = torch.randn(n + 2 * W, generator=g, device=cuda) * 8000.0
+    xs = x[W - half: W - half + n + nt - 1]
+    y = sf.fir_real(xs, taps, n)
+    assert torch.equal(y, sf.stream_fir_plain(xs, taps, None, n))
+
+
+def test_fm_video_and_offset_card_match_cpu(cuda):
+    """fm_video_modulate (with the energy-dispersal triangle and a phase
+    carry; phases of thousands of radians) and offset_rotate (at the
+    intro and after it) on seeded blocks, on the card and on the CPU:
+    byte-equal."""
+    out = {}
+    for d in ("cpu", cuda):
+        rng = np.random.default_rng(77)
+        st = rf_ops.make_fm_video_statics(16e6, 1.0, 20_250_000, 625)
+        x = torch.as_tensor((rng.standard_normal((625, 1296)) * 12000)
+                            .astype(np.float32), device=d)
+        tri = torch.as_tensor(rng.integers(-2048, 2048, (625, 1296))
+                              .astype(np.int32), device=d)
+        fi, fq, r = rf_ops.fm_video_modulate(
+            st, x, torch.tensor(98765, device=d), tri)
+        ost = rf_ops.make_offset_statics(-2_250_000, 20_000_000, 1280,
+                                         device=d)
+        rot = []
+        for k0 in (0, 777):
+            c0, s0, nz = rf_ops.offset_rotation(-2_250_000, 20_000_000, k0,
+                                                1280, 64)
+            k = np.maximum(np.arange(k0, k0 + 64), 0).astype(np.int32)
+            t = lambda a: torch.as_tensor(a, device=d)
+            rot += rf_ops.offset_rotate(ost, x[:64, :1280], x[64:128, :1280],
+                                        t(c0), t(s0), t(nz), t(k))
+        out[d] = [v.cpu().numpy() for v in (fi, fq, r, *rot)]
+    for i, (a, b) in enumerate(zip(out[cuda], out["cpu"])):
+        assert a.tobytes() == b.tobytes(), \
+            f"output {i}: {np.count_nonzero(a != b)} of {a.size} differ"
+
+
+@pytest.mark.parametrize("mode,rate,kw", [
+    ("pal-fm", 20_250_000, {"vfilter": True}),
+    ("pal-fm", 16_000_000, {"swap_iq": True}),
+    ("secam-fm", 16_000_000, {}),
+    ("i", 20_000_000, {"offset": -2_250_000}),
+    ("mux", 20_000_000, {})])
+def test_rf_encoder_card_matches_cpu(cuda, mode, rate, kw):
+    """FM video (host-exact, and the device closed form with swap-IQ),
+    SECAM-FM, PAL-I with an offset and the two-channel mux, one-frame
+    blocks 0-2, card against CPU."""
+    def make(d):
+        if mode == "mux":
+            return MuxEncoder([Encoder("i", rate, offset=o, device=d)
+                               for o in (-2_250_000, 2_250_000)])
+        return Encoder(mode, rate, device=d, **kw)
+    g, c = make(cuda), make("cpu")
     for b in range(3):
         snr, maxerr, ndiff = tc.error_report(g.encode_block(b),
                                              c.encode_block(b))

@@ -97,11 +97,11 @@ def test_blocks_must_be_sequential():
         t.encode_block_device(2)
 
 
-@pytest.mark.parametrize("mode,kw", [("l", {"secam_exact": True}),
-                                     ("secam", {"swap_iq": True}),
+@pytest.mark.parametrize("mode,kw", [("l", {"pixel_rate": 13_500_000}),
+                                     ("ntsc-bs", {}),
                                      ("pal", {"teletext": "demo"}),
-                                     ("pal", {"offset": 1000}),
-                                     ("secam-fm", {})])
+                                     ("30", {}),
+                                     ("d2mac-fm", {})])
 def test_unported_options_raise(mode, kw):
     with pytest.raises(NotImplementedError):
         TEncoder(mode, 16_000_000, device="cpu", **kw)

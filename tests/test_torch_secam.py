@@ -151,15 +151,18 @@ def test_secam_blocks_must_be_sequential():
         TEncoder("secam", RATE, device="cpu").encode_block(3)
 
 
-@pytest.mark.parametrize("kw", [{"secam_exact": True},
-                                {"mode": "secam-fm"},
-                                {"field_id": True}])
+@pytest.mark.parametrize("kw", [{"pixel_rate": 13_500_000},
+                                {"s_video": True},
+                                {"moving": True}])
 def test_unported_secam_options_raise(kw):
-    """The host-exact chroma (native runtime), FM-video SECAM and the
-    field-identification lines raise; none falls back to another path."""
+    """SECAM with the video resampler (--pixelrate), S-Video and a
+    moving-video source raise; none falls back to another path."""
     kw = dict(kw)
-    conf = tget_mode(kw.pop("mode", "l"))
-    if kw.pop("field_id", False):
-        conf = replace(conf, secam_field_id=True)
+    conf = tget_mode("l")
+    if kw.pop("s_video", False):
+        conf = replace(conf, s_video=True)
+    if kw.pop("moving", False):
+        # a source without `stateless` reads new frames as it goes
+        kw["source"] = type("Moving", (), {"width": 10, "height": 10})()
     with pytest.raises(NotImplementedError):
         TEncoder(conf, RATE, device="cpu", **kw)

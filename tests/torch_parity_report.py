@@ -7,14 +7,16 @@ counts that tests/test_torch_*.py hold to their bars, as numbers.
 
 Sections: the stream FIR's first-step rule over random tap sets, the
 glibc sin/cos emulation against this process's libm over seeded inputs in
-fm_add's phase range, the FM carrier against the JAX encoder's compiled
+fm_add's phase range and, through glibc's large-argument reduction, over
+|x| in [120, 1e5] (FM video's phases), the FM carrier against the JAX encoder's compiled
 fm_prepare + fm_add (NTSC-M, direct cos/sin) and against the JAX PAL-I
 encoder with NICAM off (the K=4 rotation chain), the NICAM sign stream
 and contribution against hacktv_tpu's device coder and nicam_add, the SECAM
 chroma program against the JAX one (and the largest carrier phase the
-test card gives), and each encoder configuration's first one-frame blocks
-(SNR, max error, differing samples): two for the PAL and NTSC chains,
-three (the SECAM IIR carry crossed twice) for SECAM, AM and A2."""
+test card and the field-identification lines give), and each encoder
+configuration's first one-frame blocks (SNR, max error, differing
+samples): two for the PAL and NTSC chains, three (the SECAM IIR carry
+crossed twice) for SECAM, AM, A2, FM video and the RF tail."""
 
 from __future__ import annotations
 
@@ -73,25 +75,34 @@ def fir_rule(sets: int = 24, nt: int = 11, n: int = 3000) -> None:
           f"{bad} of {2 * sets * n} outputs differ from Pallas interpret")
 
 
-def sincosf(n: int, lo: float = -4.77, hi: float = 11.12) -> None:
+def sincosf(n: int, lo: float = -4.77, hi: float = 11.12,
+            large: bool = False) -> None:
     """hacktv_tpu_torch's glibc sinf/cosf against libm's own, which the
-    JAX CPU backend calls; [lo, hi] covers the phases fm_add sees."""
+    JAX CPU backend calls; [lo, hi] covers the phases fm_add sees.  With
+    `large`, |x| is log-uniform over [lo, hi] with either sign, through
+    glibc's large-argument reduction (FM video's phases)."""
     libm = ctypes.CDLL(ctypes.util.find_library("m"))
     for f in (libm.sinf, libm.cosf):
         f.restype = ctypes.c_float
         f.argtypes = [ctypes.c_float]
-    x = np.random.default_rng(11).uniform(lo, hi, n).astype(np.float32)
+    rng = np.random.default_rng(11)
+    if large:
+        x = (np.exp(rng.uniform(np.log(lo), np.log(hi), n))
+             * rng.choice([-1.0, 1.0], n)).astype(np.float32)
+    else:
+        x = rng.uniform(lo, hi, n).astype(np.float32)
     bad_s = bad_c = 0
     for a in range(0, n, 1 << 20):
         xb = x[a:a + (1 << 20)]
         s, c = (t.numpy() for t in tsynth._sincosf_glibc(
-            torch.from_numpy(xb)))
+            torch.from_numpy(xb), large=large))
         xl = xb.tolist()
         bad_s += int(np.count_nonzero(
             s != np.fromiter(map(libm.sinf, xl), np.float32, len(xl))))
         bad_c += int(np.count_nonzero(
             c != np.fromiter(map(libm.cosf, xl), np.float32, len(xl))))
-    print(f"glibc sinf/cosf emulation: {n} inputs in [{lo}, {hi}], sin "
+    span = f"|x| in [{lo}, {hi}]" if large else f"[{lo}, {hi}]"
+    print(f"glibc sinf/cosf emulation: {n} inputs, {span}, sin "
           f"{bad_s}, cos {bad_c} differ from libm")
 
 
@@ -201,10 +212,10 @@ def secam() -> None:
     phase_max = 0.0
     orig = tsecam._sincosf_glibc
 
-    def probe(x):
+    def probe(x, **kw):
         nonlocal phase_max
         phase_max = max(phase_max, float(x.abs().max()))
-        return orig(x)
+        return orig(x, **kw)
     tsecam._sincosf_glibc = probe
     zj, zt = jnp.float32(0.0), torch.tensor(0.0)
     for b in range(3):
@@ -218,8 +229,15 @@ def secam() -> None:
               f"{np.count_nonzero(to.numpy() != np.asarray(jo))} of "
               f"{to.numel()} samples differ, z carry "
               f"{'equal' if float(zt) == float(zj) else 'differs'}")
-    tsecam._sincosf_glibc = orig
     print(f"SECAM carrier phase on the test card: max |phase| "
+          f"{phase_max:.3f} rad")
+    phase_max = 0.0
+    fid = TEncoder(replace(tget_mode("secam"), secam_field_id=True),
+                   16_000_000, device="cpu")
+    for b in range(2):
+        fid.encode_block(b)
+    tsecam._sincosf_glibc = orig
+    print(f"SECAM carrier phase with the field-ID lines: max |phase| "
           f"{phase_max:.3f} rad")
 
 
@@ -233,14 +251,22 @@ def encoders() -> None:
             ("l", 16_000_000, {}), ("l", 16_000_000, dict(vfilter=True)),
             ("d", 16_000_000, {}), ("a", 16_000_000, {}),
             ("g", 16_000_000, dict(a2stereo=True)),
-            ("m", 13_513_500, dict(a2stereo=True))):
+            ("m", 13_513_500, dict(a2stereo=True)),
+            ("pal-fm", 16_000_000, {}),
+            ("pal-fm", 20_250_000, dict(vfilter=True)),
+            ("ntsc-fm", 20_250_000, dict(vfilter=True)),
+            ("secam-fm", 16_000_000, {}),
+            ("pal-fm", 16_000_000, dict(swap_iq=True)),
+            ("i", 20_000_000, dict(offset=-2_250_000)),
+            ("i", 20_000_000, dict(offset=2_250_000)),
+            ("l", 16_000_000, dict(secam_exact=True))):
         probe = TEncoder(mode, rate, device="cpu")
         src = NoiseSource(probe.params.active_width, probe.conf.active_lines,
                           seed=7)
         j = JEncoder(mode, rate, source=src, **kw)
         t = TEncoder(mode, rate, source=src, device="cpu", **kw)
-        nb = 3 if mode in ("secam", "l", "d", "a") or kw.get(
-            "a2stereo") else 2
+        nb = 3 if mode in ("secam", "l", "d", "a") or mode.endswith(
+            "-fm") or {"a2stereo", "offset"} & set(kw) else 2
         for b in range(nb):
             snr, maxerr, ndiff = tc.error_report(t.encode_block(b),
                                                  j.encode_block(b))
@@ -258,6 +284,7 @@ if __name__ == "__main__":
           f"jax {jax.__version__}")
     fir_rule()
     sincosf(args.sincosf)
+    sincosf(args.sincosf, 120.0, 1e5, large=True)
     fm_flips()
     fm_chain()
     nicam()
