@@ -12,7 +12,11 @@ with A2 stereo), pal-fm-preemph (Encoder("pal-fm", 20.25 MS/s,
 --filter): satellite FM video with the CCIR-405 pre-emphasis filter, the
 host-exact video and sound carriers of the native runtime) and
 mux-i-offset (MuxEncoder of two Encoder("i", 20 MS/s) at -2.25 and
-+2.25 MHz: two PAL-I transmitters on one stream).
++2.25 MHz: two PAL-I transmitters on one stream), pal-svideo-lowpass
+(Encoder("pal", 16 MS/s, --filter, --s-video): luma and chroma on two
+channels, each through the 51-tap low-pass) and i-pixelrate
+(Encoder("i", 16 MS/s, pixel_rate=14.75 MS/s): the PAL-I chain
+synthesised at 944 pixels a line and resampled to 1024 samples).
 
 Phases, one line each (any failure exits non-zero before the result):
 
@@ -37,20 +41,29 @@ Phases, one line each (any failure exits non-zero before the result):
      64-frame block's shapes on the card against the same calls on the
      CPU: byte-equal required; the card time of each, and the host time
      of one block's SECAM metadata (block_meta, built once per key);
-  6. end to end: each path at 64 frames per block, seeded noise for
+  6. resample: the video resampler (device_resample_block) at
+     i-pixelrate's 64-frame shape (L/M = 64/59, windows within a row) and
+     at PAL 8 MS/s from 16 MS/s (L/M = 1/2, windows across rows) on the
+     card against the same call on the CPU: byte-equal required; its card
+     time, peak card memory and bytes bound;
+  7. end to end: each path at 64 frames per block, seeded noise for
      sound: 2 warm-up and 8 timed blocks (the host's enqueue time and the
      block time to the card's end; for FM video on the host, to the end
      of its collect_block, where the FM recurrence runs), with every
      kernel's launch count set to 0 just before a path and read just
      after;
-  7. the card against the port's CPU path, one-frame blocks 0-2 of each
+  8. the card against the port's CPU path, one-frame blocks 0-3 of each
      path and of SECAM composite, SECAM-L (device and host-exact
      chroma), 405-line system A (AM sound), NTSC-M with A2 at 13.5135
      MS/s, SECAM-FM, NTSC-FM with its 71-tap pre-emphasis at 20.25 MS/s,
-     PAL-FM with swap-IQ (FM video's device closed form) and PAL-I at
-     20 MS/s 2.25 MHz below centre: byte-identical required;
-  8. the command line, 4 frames of -m i and of -m pal-fm --filter to
-     files through the native sink.
+     PAL-FM with swap-IQ (FM video's device closed form), PAL-I at 20
+     MS/s 2.25 MHz below centre, the rotated frames of Baird 30 and NBTV,
+     field-sequential colour (Apollo, CBS 405), S-Video on SECAM and on
+     PAL-I with its VSB filter, PAL at 8 MS/s from 16 MS/s pixels and
+     PAL-FM at 20.25 MS/s from 13.5 MS/s pixels: byte-identical required;
+  9. the command line, 4 frames each of -m i, -m pal-fm --filter, -m pal
+     --s-video --filter and -m i --pixelrate 14750000 to files through
+     the native sink.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -67,6 +80,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -77,7 +91,8 @@ FPB = 64                       # frames per block on the main path
 TIMED_BLOCKS = 8
 WARM_BLOCKS = 2
 # path: (mode, sample rate, --filter, other Encoder arguments); "mux" is a
-# MuxEncoder of one such encoder per frequency offset
+# MuxEncoder of one such encoder per frequency offset, "s_video" sets the
+# mode's S-Video switch
 MUX_OFFSETS = (-2_250_000, 2_250_000)
 PATHS = {"m-vsb": ("m", 13_500_000, True, {}),
          "pal-lowpass": ("pal", 16_000_000, True, {}),
@@ -86,7 +101,10 @@ PATHS = {"m-vsb": ("m", 13_500_000, True, {}),
          "secam-l-vsb": ("l", 16_000_000, True, {}),
          "g-a2": ("g", 16_000_000, False, {"a2stereo": True}),
          "pal-fm-preemph": ("pal-fm", 20_250_000, True, {}),
-         "mux-i-offset": ("i", 20_000_000, False, {"mux": MUX_OFFSETS})}
+         "mux-i-offset": ("i", 20_000_000, False, {"mux": MUX_OFFSETS}),
+         "pal-svideo-lowpass": ("pal", 16_000_000, True, {"s_video": True}),
+         "i-pixelrate": ("i", 16_000_000, False,
+                         {"pixel_rate": 14_750_000})}
 # the card against the CPU: the paths and these
 CPU_PATHS = {**PATHS,
              "secam": ("secam", 16_000_000, False, {}),
@@ -98,17 +116,34 @@ CPU_PATHS = {**PATHS,
              "pal-fm-swap": ("pal-fm", 16_000_000, False, {"swap_iq": True}),
              "i-offset": ("i", 20_000_000, False, {"offset": -2_250_000}),
              "l-secam-exact": ("l", 16_000_000, False,
-                               {"secam_exact": True})}
-CPU_BLOCKS = 3                 # one-frame blocks 0-2: SECAM's carry twice
+                               {"secam_exact": True}),
+             "30": ("30", 100_000, False, {}),
+             "nbtv-am": ("nbtv-am", 100_000, False, {}),
+             "apollo-fsc": ("apollo-fsc", 14_000_000, False, {}),
+             "apollo-fsc-fm": ("apollo-fsc-fm", 13_500_000, False, {}),
+             "cbs405": ("cbs405", 9_000_000, False, {}),
+             "m-cbs405": ("m-cbs405", 14_000_000, False, {}),
+             "secam-svideo": ("secam", 16_000_000, False, {"s_video": True}),
+             "i-svideo-vsb": ("i", 16_000_000, True, {"s_video": True}),
+             "pal-8-from-16": ("pal", 8_000_000, False,
+                               {"pixel_rate": 16_000_000}),
+             "pal-fm-pixelrate": ("pal-fm", 20_250_000, False,
+                                  {"pixel_rate": 13_500_000})}
+# one-frame blocks 0-3: SECAM's carry three times, every field of the
+# field-sequential modes, the second block of each
+CPU_BLOCKS = 4
 
 
 def build(spec, device, source=None, frames_per_block=1):
     """The encoder (or mux of encoders) of a PATHS/CPU_PATHS entry."""
+    from hacktv_tpu_torch.config import get_mode
     from hacktv_tpu_torch.encoder import Encoder
     from hacktv_tpu_torch.mux import MuxEncoder
     mode, rate, vfilter, kw = spec
     kw = dict(kw)
     offsets = kw.pop("mux", None)
+    if kw.pop("s_video", False):
+        mode = replace(get_mode(mode), s_video=True)
     mk = lambda **extra: Encoder(mode, rate, vfilter=vfilter, source=source,
                                  frames_per_block=frames_per_block,
                                  device=device, **kw, **extra)
@@ -118,12 +153,16 @@ def build(spec, device, source=None, frames_per_block=1):
 
 
 def noise_source(spec):
-    """Seeded noise sound on the test card, sized for the path's mode."""
+    """Seeded noise sound on the test card, sized for the path's mode at
+    its pixel rate (with its sides swapped for a quarter-turn mode, whose
+    frames the encoder rotates)."""
     from hacktv_tpu_torch.av.noise import NoiseSource
     from hacktv_tpu_torch.config import get_mode
     from hacktv_tpu_torch.video.params import VideoParams
     conf = get_mode(spec[0])
-    p = VideoParams.create(conf, spec[1], 0)
+    p = VideoParams.create(conf, spec[1], spec[3].get("pixel_rate", 0))
+    if (conf.frame_orientation & 3) in (1, 3):
+        return NoiseSource(conf.active_lines, p.active_width)
     return NoiseSource(p.active_width, conf.active_lines)
 
 
@@ -426,6 +465,52 @@ def secam_phase(Encoder) -> None:
     torch.cuda.empty_cache()
 
 
+def resample_phase() -> None:
+    """The video resampler at the 64-frame block's shapes, on the card and
+    on the CPU from the same seeded composite: byte-equal required; then
+    its card time (CUDA events), its peak card memory and its bound: the
+    bytes it must move (the f32 stream in, the f32 stream out) over the
+    card's memory rate."""
+    from hacktv_tpu_torch.ops import resampler as rs_mod
+    from hacktv_tpu_torch.video.params import VideoParams
+    from hacktv_tpu_torch.config import get_mode
+    for mode, rate, px in (("i", 16_000_000, 14_750_000),
+                           ("pal", 8_000_000, 16_000_000)):
+        conf = get_mode(mode)
+        p = VideoParams.create(conf, rate, px)
+        wout = VideoParams.create(conf, rate, 0).width
+        nlines = FPB * conf.lines
+        st = rs_mod.make_block_statics(rs_mod.Resampler.create(rate, px),
+                                       p.width, wout, nlines)
+        rng = np.random.default_rng(21)
+        flat = (rng.standard_normal((nlines + 2) * p.width) * 12000).astype(
+            np.float32)
+        x = torch.as_tensor(flat, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = rs_mod.device_resample_block(st, x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        ref = rs_mod.device_resample_block(st, torch.as_tensor(flat))
+        diff = int(np.count_nonzero(got.cpu().numpy() != ref.numpy()))
+        ms = cuda_ms(lambda: rs_mod.device_resample_block(st, x), 5)
+        nbytes = 4 * (x.numel() + st.n_out)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        phase("resample", mode=mode, L=st.rs.L, M=st.rs.M, A=st.rs.A,
+              stride=st.stride, branch=("row" if st.rs.A <= st.stride
+                                        else "per-tap"),
+              inputs=x.numel(), outputs=st.n_out, card_vs_cpu_differing=diff,
+              ms=f"{ms:.3f}", peak_mem_gb=f"{peak / 1e9:.3f}",
+              bound_ms=f"{bound_ms:.4f}", bound_by="bytes",
+              bound_share=f"{bound_ms / ms:.3f}",
+              card=json.dumps(CARD["smi"]))
+        if diff:
+            fail(f"resample {mode}: the card differs from the CPU path")
+        del x, got, ref
+        torch.cuda.empty_cache()
+
+
 def e2e_phase(sf, path: str, profile_dir) -> dict:
     mode, rate, vfilter, kw = PATHS[path]
     enc = build(PATHS[path], "cuda", noise_source(PATHS[path]), FPB)
@@ -474,9 +559,10 @@ def e2e_phase(sf, path: str, profile_dir) -> dict:
                             if collect_s else "-"),
           launches=json.dumps(launches).replace(" ", ""),
           peak_mem_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    # S-Video runs the low-pass on the C channel too
     want = ({} if not vfilter else
             {"fir_cplx": nblocks} if enc.vf_taps[1] is not None else
-            {"fir_real": nblocks})
+            {"fir_real": nblocks * (2 if enc.conf.s_video else 1)})
     for k, v in launches.items():
         if v != want.get(k, 0):
             fail(f"{path}: {k} launched {v} times for {nblocks} blocks")
@@ -561,11 +647,16 @@ def cpu_compare_phase() -> None:
 
 def cli_phase() -> None:
     """Four frames from the command line to a file through the native
-    sink: PAL-I, and PAL-FM with the pre-emphasis filter."""
+    sink: PAL-I, PAL-FM with the pre-emphasis filter, PAL S-Video with the
+    low-pass and PAL-I from 14.75 MS/s pixels."""
     with tempfile.TemporaryDirectory() as tmp:
         for args, frame_samples in ((["-m", "i"], 640_000),
                                     (["-m", "pal-fm", "--filter", "-s",
-                                      "20250000"], 810_000)):
+                                      "20250000"], 810_000),
+                                    (["-m", "pal", "--s-video", "--filter"],
+                                     640_000),
+                                    (["-m", "i", "--pixelrate", "14750000"],
+                                     640_000)):
             out = os.path.join(tmp, "out.bin")
             t = time.perf_counter()
             r = subprocess.run(
@@ -633,6 +724,7 @@ def main() -> int:
     recs = kernel_phase(sf, VideoParams, get_mode)
     nicam_phase(Encoder)
     secam_phase(Encoder)
+    resample_phase()
     launches = {}
     for path in PATHS:
         launches[path] = e2e_phase(sf, path, args.profile)

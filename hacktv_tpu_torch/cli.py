@@ -4,27 +4,31 @@ covers (port of hacktv_tpu/cli.py).
     python -m hacktv_tpu_torch -m i --frames 4 -o out.bin test
 
 writes 4 frames of PAL-I with FM and NICAM-728 sound as interleaved int16
-I/Q.  Accepted: -m MODE (the satellite FM modes pal-fm, ntsc-fm and
-secam-fm among them), -s RATE, --filter, --noaudio, --nonicam,
---a2stereo, --swap-iq, --offset HZ, --passthru FILE, --raw-bb-file FILE,
---raw-bb-blanking N, --raw-bb-white N, --secam-field-id,
---secam-field-id-lines N, --secam-exact, -t TYPE, -o FILE, --frames N,
---device {cuda,cpu} and the input `test`.  The output goes through the
-native runtime's threaded file sink (runtime.NativeFileSink), built at
-first use; without a C++ compiler it raises.  Any other switch is
-refused; modes and options that the port does not cover yet raise
+I/Q.  Accepted: -m MODE, --list-modes [--json], -s RATE, --pixelrate
+RATE, -l LEVEL, -D DEVIATION, -G GAMMA, --fm-energy-dispersal, -i,
+--volume, --nocolour/--nocolor, --s-video, --invert-video, --filter,
+--noaudio, --nonicam, --a2stereo, --swap-iq, --offset HZ, --passthru FILE,
+--raw-bb-file FILE, --raw-bb-blanking N, --raw-bb-white N,
+--secam-field-id, --secam-field-id-lines N, --secam-exact, -t TYPE,
+-o FILE, --frames N, --seconds S, --frames-per-block N, --device
+{cuda,cpu} and the input `test`.  The output goes through the native
+runtime's threaded file sink (runtime.NativeFileSink), built at first
+use; without a C++ compiler it raises.  Any other switch is refused;
+modes and options that the port does not cover yet raise
 NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import math
 import sys
 from dataclasses import replace
 
 import numpy as np
 
-from .config.standards import get_mode
+from .config.standards import ColourMode, get_mode, list_modes
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -37,8 +41,20 @@ def _build_parser() -> argparse.ArgumentParser:
       help="input: 'test' (the test card) is the only source ported yet")
     a("-o", "--output", default="-",
       help="output: file:<path>, a bare path, or - for stdout")
-    a("-m", "--mode", default="i", help="TV mode id")
+    a("-m", "--mode", default="i", help="TV mode id (see --list-modes)")
+    a("--list-modes", action="store_true")
+    a("--json", action="store_true")
     a("-s", "--samplerate", type=float, default=16e6)
+    a("--pixelrate", type=float, default=0)
+    a("-l", "--level", type=float, default=None)
+    a("-D", "--deviation", type=float, default=None)
+    a("-G", "--gamma", type=float, default=None)
+    a("--fm-energy-dispersal", type=float, default=None)
+    a("-i", "--interlace", action="store_true")
+    a("--volume", type=float, default=None)
+    a("--nocolour", "--nocolor", action="store_true", dest="nocolour")
+    a("--s-video", action="store_true", dest="s_video")
+    a("--invert-video", action="store_true")
     a("--filter", action="store_true", dest="vfilter")
     a("--noaudio", action="store_true")
     a("--nonicam", action="store_true")
@@ -58,38 +74,101 @@ def _build_parser() -> argparse.ArgumentParser:
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
     a("--frames", type=int, default=0,
       help="stop after N frames (0 = until interrupted)")
+    a("--seconds", type=float, default=0,
+      help="stop after S seconds of signal")
+    a("--frames-per-block", type=int, default=0,
+      help="frames synthesised per device call (0 = 16, or --frames if "
+           "fewer)")
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="where the encoder runs (default: the CUDA card)")
     return p
 
 
+def _print_modes(as_json: bool) -> None:
+    if as_json:
+        out = {"modes": [{"id": k, "description": d}
+                         for k, d in list_modes()]}
+        print(json.dumps(out, indent=2))
+    else:
+        for k, d in list_modes():
+            print(f"  {k:<14} = {d}")
+
+
+def _apply_overrides(conf, args):
+    """The switches that change the mode's configuration."""
+    kw = {}
+    if args.level is not None:
+        kw["level"] = args.level
+    if args.deviation is not None:
+        kw["fm_deviation"] = args.deviation
+    if args.fm_energy_dispersal is not None:
+        kw["fm_energy_dispersal"] = args.fm_energy_dispersal
+    if args.gamma is not None:
+        kw["gamma"] = args.gamma
+    if args.interlace:
+        kw["interlace"] = 1
+    if args.volume is not None:
+        kw["volume"] = args.volume
+    if args.nocolour:
+        kw["colour_mode"] = ColourMode.MONOCHROME
+    if args.s_video:
+        kw["s_video"] = True
+    if args.noaudio:
+        kw.update(fm_mono_level=0.0, fm_left_level=0.0, fm_right_level=0.0,
+                  am_audio_level=0.0, nicam_level=0.0, dance_level=0.0)
+    if args.nonicam:
+        kw["nicam_level"] = 0.0
+    if args.invert_video:
+        kw["invert_video"] = True
+    if args.secam_field_id:
+        kw["secam_field_id"] = True
+    if args.secam_field_id_lines is not None:
+        kw["secam_field_id_lines"] = args.secam_field_id_lines
+    return replace(conf, **kw) if kw else conf
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
+    if args.list_modes:
+        _print_modes(args.json)
+        return 0
     if args.input != ["test"]:
         raise NotImplementedError("only the 'test' input is ported yet")
     try:
         conf = get_mode(args.mode)
     except KeyError as e:
         raise SystemExit(str(e))
-    if args.noaudio:
-        conf = replace(conf, fm_mono_level=0.0, fm_left_level=0.0,
-                       fm_right_level=0.0, am_audio_level=0.0,
-                       nicam_level=0.0, dance_level=0.0)
-    if args.nonicam:
-        conf = replace(conf, nicam_level=0.0)
-    if args.secam_field_id:
-        conf = replace(conf, secam_field_id=True)
-    if args.secam_field_id_lines is not None:
-        conf = replace(conf, secam_field_id_lines=args.secam_field_id_lines)
+    conf = _apply_overrides(conf, args)
     if args.a2stereo and conf.mac_mode is not None:
         raise SystemExit("a2stereo is not available for MAC modes")
+    sample_rate = int(args.samplerate)
+    pixel_rate = int(args.pixelrate)
 
-    # 16 frames per block, or --frames if fewer
-    fpb = min(16, args.frames) if args.frames else 16
+    # pixel-rate suitability warning (src/video.c:2385-2404): a whole
+    # number of samples per line needs a multiple of
+    # lines * frame_rate / gcd
+    pr = pixel_rate or sample_rate
+    m = conf.lines * conf.frame_rate.num
+    m //= math.gcd(m, conf.frame_rate.den)
+    if pr % m:
+        r = pr // m
+        print(f"Warning: Pixel rate {pr} may not work well with this "
+              "mode.", file=sys.stderr)
+        print(f"Next valid pixel rates: {m * r}, {m * (r + 1)}",
+              file=sys.stderr)
+
+    frames = args.frames
+    if args.seconds:
+        fr = conf.frame_rate
+        frames = max(frames, int(np.ceil(args.seconds * fr.num / fr.den)))
+    # 16 frames per block, or the whole capture if it is shorter
+    fpb = args.frames_per_block
+    if fpb <= 0:
+        fpb = min(16, frames) if frames else 16
 
     from .encoder import Encoder
     from .runtime import NativeFileSink
-    enc = Encoder(conf, int(args.samplerate), frames_per_block=fpb,
+    enc = Encoder(conf, sample_rate, pixel_rate, frames_per_block=fpb,
                   vfilter=args.vfilter, a2stereo=args.a2stereo,
                   offset=int(args.offset), swap_iq=args.swap_iq,
                   passthru=args.passthru, raw_bb_file=args.raw_bb_file,
@@ -108,13 +187,13 @@ def main(argv=None) -> int:
         pending = enc.encode_block_device(0)
         while pending is not None:
             nxt = None
-            if not args.frames or frames_done + fpb < args.frames:
+            if not frames or frames_done + fpb < frames:
                 nxt = enc.encode_block_device(block + 1)
             out = enc.collect_block(block, pending)
             if out.ndim == 1:
                 out = np.stack([out, np.zeros_like(out)], axis=-1)
-            if args.frames and frames_done + fpb > args.frames:
-                out = out[: (args.frames - frames_done) * enc.frame_samples]
+            if frames and frames_done + fpb > frames:
+                out = out[: (frames - frames_done) * enc.frame_samples]
             sink.write(out)
             frames_done += fpb
             block += 1

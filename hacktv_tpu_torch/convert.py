@@ -20,8 +20,10 @@ follow the same rule: `offset_statics.` + `cos_x`, `sin_x`, `intro_bi`,
 `intro_bq`; the energy-dispersal frame `_fm_ed_frame`; the phasor LUTs of
 the host-exact FM carriers `fm_exact._lut` (sound) and
 `fm_video_exact._lut` (video); and the host-exact SECAM carrier's LUT
-`_secam_lut`.  `carrier_rows`, a (cos, sin) pair of [P, W] tables,
-travels stacked as one [2, P, W] array.
+`_secam_lut`.  The video resampler's polyphase bank and class windows go
+under `resampler.` + `rs.T`, `Td`, `offq`, `offr`; the field-sequential
+flag templates under `fsc_tpl`.  `carrier_rows`, a (cos, sin) pair of
+[P, W] tables, travels stacked as one [2, P, W] array.
 
     arrays = statics_to_numpy(enc)          # {name: np.ndarray}
     statics_from_numpy(other_enc, arrays)   # installs them on its device
@@ -36,7 +38,7 @@ import torch
 
 RASTER_FIELDS = ("sync_main", "sync_tail", "sync_head", "chroma_taps",
                  "burst_u", "burst_v", "carrier_rows", "carrier_cos",
-                 "carrier_sin")
+                 "carrier_sin", "fsc_tpl")
 NICAM_FIELDS = ("pulse", "lut_i", "lut_q")
 NICAM_DEV_FIELDS = ("perm", "prn", "taps")
 SECAM_FIELDS = ("luma_taps", "chroma_taps", "bell_i", "bell_q", "w0_tab",
@@ -45,6 +47,7 @@ SECAM_CONST_FIELDS = ("r_pow", "w0_col", "win_col", "fid")
 A2_FIELDS = ("cos1_x", "sin1_x", "cos2_x", "sin2_x")
 OFFSET_FIELDS = ("cos_x", "sin_x", "intro_bi", "intro_bq")
 FM_EXACT_ATTRS = ("fm_exact", "fm_video_exact")
+RESAMPLER_FIELDS = ("Td", "offq", "offr")
 
 
 def statics_to_numpy(enc) -> dict:
@@ -99,6 +102,10 @@ def statics_to_numpy(enc) -> dict:
             out[name + "._lut"] = getattr(enc, name)._lut
     if enc.secam is not None and not enc.secam_device:
         out["_secam_lut"] = enc._secam_lut
+    if enc.resampler is not None:
+        out["resampler.rs.T"] = enc.resampler.rs.T
+        for f in RESAMPLER_FIELDS:
+            out["resampler." + f] = getattr(enc.resampler, f)
     return out
 
 
@@ -162,6 +169,15 @@ def statics_from_numpy(enc, arrays: dict) -> None:
                 arrays[name + "._lut"], np.int32)
     if "_secam_lut" in arrays:
         enc._secam_lut = np.ascontiguousarray(arrays["_secam_lut"], np.int32)
+    if enc.resampler is not None:
+        # a new statics object: its tensors are made again on first use
+        st = enc.resampler
+        enc.resampler = dataclasses.replace(
+            st, rs=dataclasses.replace(
+                st.rs, T=np.asarray(arrays["resampler.rs.T"], np.int64)),
+            Td=np.asarray(arrays["resampler.Td"], np.int32),
+            offq=np.asarray(arrays["resampler.offq"], np.int64),
+            offr=np.asarray(arrays["resampler.offr"], np.int64))
     if "pulse" in arrays:
         enc.nicam_statics = dataclasses.replace(
             enc.nicam_statics, **{f: t(arrays[f]) for f in NICAM_FIELDS})

@@ -1,18 +1,20 @@
 """Top-level encoder: source frames -> block synthesis on the device ->
 int16 samples.
 
-Port of hacktv_tpu/encoder.py for the raster modes (PAL, NTSC, SECAM and
-monochrome) with the video filter, FM mono and A2 stereo sound, AM sound
-and NICAM-728 (PAL-I, the flagship chain, PAL-B/G, SECAM-L, D/K, NTSC-M +
-VSB `--filter`, the 405-line modes, composite with the low-pass
+Port of hacktv_tpu/encoder.py for the raster modes (PAL, NTSC, SECAM,
+monochrome, field-sequential colour, the rotated frames of Baird 30 and
+NBTV, S-Video) with the video filter, FM mono and A2 stereo sound, AM
+sound and NICAM-728 (PAL-I, the flagship chain, PAL-B/G, SECAM-L, D/K,
+NTSC-M + VSB `--filter`, the 405-line modes, composite with the low-pass
 `--filter`), FM video (the satellite modes `pal-fm`, `ntsc-fm`,
-`secam-fm`), and the RF tail every mode shares: swap-IQ, the frequency
-offset and the passthru stream; a raw baseband file may replace the
-raster.  A block of `frames_per_block` whole frames, plus one halo line
-each side for filter continuity, is synthesised as a sequence of tensor
-ops on one device:
+`secam-fm`), the pixel-rate resampler (`pixel_rate`), and the RF tail
+every mode shares: swap-IQ, the frequency offset and the passthru
+stream; a raw baseband file may replace the raster.  A block of
+`frames_per_block` whole frames, plus one halo line each side for filter
+continuity, is synthesised as a sequence of tensor ops on one device:
 
     raster (video/raster.py) -> SECAM chroma and render (video/secam.py)
+    -> resampler (ops/resampler.py)
     -> stream FIR (ops/stream_fir.py, the CUDA kernel on a card) -> FM
     and A2 sound carriers, AM sound (audio/synth.py) -> NICAM
     (audio/nicam_dev.py, audio/synth.py) -> FM video, swap-IQ, offset
@@ -51,16 +53,19 @@ from .audio import nicam as nicam_mod
 from .audio import nicam_dev
 from .audio import synth as audio_synth
 from .audio.chain import _LIM_HIST, AudioChain
+from .av import frame_ops
 from .av.testcard import TestCardSource
 from .config.standards import (ColourMode, Modulation, OutputType, VidConfig,
                                get_mode)
+from .ops import resampler
 from .ops.stream_fir import stream_fir
 from .rf import ops as rf_ops
 from .video import raster
 from .video import secam as secam_mod
 from .video.params import VideoParams
 
-_INDEX_KEYS = ("base", "nxt", "prv", "vy", "al", "ar", "lut_row")
+_INDEX_KEYS = ("base", "nxt", "prv", "vy", "al", "ar", "lut_row", "fsc",
+               "fscf")
 _FLOAT_KEYS = ("burst", "vswitch", "cos0", "sin0")
 
 
@@ -88,8 +93,6 @@ class Encoder:
                 raise NotImplementedError(f"{name} is not ported yet")
         if devices is not None:
             raise NotImplementedError("multiple devices are not ported yet")
-        if pixel_rate and int(pixel_rate) != int(sample_rate):
-            raise NotImplementedError("--pixelrate is not ported yet")
         self.device = resolve_device(device)
         # cos/sin of the FM phase at every sample, not through the K=4
         # rotation chain (hacktv_tpu's switch of the same name)
@@ -100,15 +103,44 @@ class Encoder:
             conf = replace(conf, vfilter=conf.vfilter or vfilter,
                            offset=conf.offset or int(offset),
                            swap_iq=conf.swap_iq or swap_iq)
-        _check_supported(conf)
+        if conf.mac_mode is not None:
+            raise NotImplementedError("MAC modes are not ported yet")
         self.conf = conf
-        self.params = VideoParams.create(conf, sample_rate, 0)
-        self.out_params = self.params
+        self.params = VideoParams.create(conf, sample_rate, pixel_rate)
         self.frames_per_block = frames_per_block
         p = self.params
 
+        # Rational pixel -> sample video resampler (src/fir.c:392-428,
+        # src/video.c:3627-3651): the raster runs at pixel_rate, and the
+        # stream is resampled to sample_rate before the video filter and
+        # the sound carriers
+        self.resampler = None
+        self.out_params = p
+        if pixel_rate and int(pixel_rate) != int(sample_rate):
+            self.out_params = VideoParams.create(conf, sample_rate, 0)
+            rs = resampler.Resampler.create(int(sample_rate),
+                                            int(pixel_rate))
+            self.resampler = resampler.make_block_statics(
+                rs, p.width, self.out_params.width,
+                frames_per_block * conf.lines, halo_lines=1)
+            if conf.colour_mode == ColourMode.SECAM:
+                # hacktv_tpu lays the SECAM chroma out at the output width
+                # over a raster at the pixel width, and fails in encoding
+                raise NotImplementedError(
+                    "SECAM with --pixelrate is not supported: the SECAM "
+                    "chroma is laid out at the output width, not the "
+                    "pixel width")
+
+        # Vertical-scan modes (Baird 30, NBTV) take the frame with its
+        # sides swapped and rotate it to scan order (src/hacktv.c:1520-1526,
+        # src/video.c:4881-4893)
         if source is None:
-            source = TestCardSource(p.active_width, conf.active_lines)
+            if (conf.frame_orientation & 3) in (1, 3):
+                source = TestCardSource(conf.active_lines, p.active_width)
+            else:
+                source = TestCardSource(p.active_width, conf.active_lines)
+        if conf.frame_orientation:
+            source = _OrientedSource(source, conf.frame_orientation)
         if not getattr(source, "stateless", False):
             raise NotImplementedError("moving-video sources are not ported "
                                       "yet")
@@ -122,16 +154,23 @@ class Encoder:
         self._use_prv = bool(np.any(self.statics.sync_head))
         # the stream FIR's taps stay on the host: the kernel takes them by
         # value at each launch
+        op = self.out_params
         self.vf_taps = None
-        if p.vfilter_ctaps is not None:
+        if op.vfilter_ctaps is not None:
             self.vf_taps = tuple(
                 torch.as_tensor(np.ascontiguousarray(a))
-                for a in (p.vfilter_ctaps.real, p.vfilter_ctaps.imag))
-        elif p.vfilter_taps is not None:
-            self.vf_taps = (torch.as_tensor(p.vfilter_taps), None)
+                for a in (op.vfilter_ctaps.real, op.vfilter_ctaps.imag))
+        elif op.vfilter_taps is not None:
+            self.vf_taps = (torch.as_tensor(op.vfilter_taps), None)
 
         self.halo_after = 1
-        self.complex_out = conf.output_type == OutputType.COMPLEX
+        # S-Video puts luma and chroma on two channels, like a complex
+        # stream (src/video.c:3032: chroma written to the second channel)
+        self.complex_out = (conf.output_type == OutputType.COMPLEX
+                            or conf.s_video)
+        if conf.s_video and self.resampler is not None:
+            raise NotImplementedError(
+                "--pixelrate with --s-video is not supported")
         self._init_audio(a2stereo)
 
         # FM video modulation (src/video.c:4564-4585).  The reference's
@@ -219,6 +258,8 @@ class Encoder:
         procs = [(1 if raw_bb_file else 3, False)]
         if self.secam is not None:
             procs.append((1, True))
+        if self.resampler is not None:
+            procs.append((2, True))
         if self.vf_taps is not None:
             procs.append((2, True))
         procs.append((1, True))
@@ -323,8 +364,11 @@ class Encoder:
         nlines = self.frames_per_block * p.lines
         k0 = block_no * nlines
         cyc = self._carrier_cycle_lines()
+        # field-sequential colour cycles its B/G/R fields over 3 frames
+        fsc3 = ((1 + k0 // p.conf.lines) % 3
+                if self.statics.fsc_mode is not None else 0)
         key = (block_no % 2 if p.conf.lines % 2 else 0,
-               k0 % cyc if cyc else 0, block_no == 0)
+               k0 % cyc if cyc else 0, block_no == 0, fsc3)
         hit = self._meta_cache.get(key)
         if hit is not None:
             self._meta_cache.move_to_end(key)
@@ -364,10 +408,20 @@ class Encoder:
             print("hacktv_tpu_torch: warning: frames_per_block="
                   f"{self.frames_per_block} with a non-static source "
                   "repeats each block's first frame", file=sys.stderr)
-        # SECAM's u/v are FM frequency offsets in deviation units
-        # (src/video.c:3944-3953)
-        host = raster.rgb_to_yuv_host(self.params, rgb,
-                                      secam=self.secam is not None)
+        if self.statics.fsc_mode is not None:
+            # field-sequential colour: one grey plane per channel, in the
+            # order of the fsc value 0=B, 1=G, 2=R (the reference
+            # replicates the selected byte, src/video.c:2989-2994)
+            planes = [raster.rgb_to_yuv_host(
+                self.params, np.repeat(rgb[..., ch:ch + 1], 3, axis=-1))[0]
+                for ch in (2, 1, 0)]
+            zero = np.zeros_like(planes[0])
+            host = (np.stack(planes), zero, zero)
+        else:
+            # SECAM's u/v are FM frequency offsets in deviation units
+            # (src/video.c:3944-3953)
+            host = raster.rgb_to_yuv_host(self.params, rgb,
+                                          secam=self.secam is not None)
         yuv = tuple(torch.as_tensor(a, device=self.device) for a in host)
         self._rgb_cache = (rgb, yuv)
         # the host-exact SECAM chroma reads the host planes
@@ -386,13 +440,19 @@ class Encoder:
         n = nlines * W
         carry = {}
 
+        cblock = None
         if self.raw_bb is not None:
             block = audio["rawbb"]
         else:
+            # S-Video: luma and chroma on separate channels
+            # (src/video.c:3032, 3219)
             block = raster.synth_block(
                 self.dstatics, yuv, m["base"], m["nxt"], m["burst"],
                 m["vswitch"], m["vy"], m["al"], m["ar"], m["cos0"],
-                m["sin0"], m["lut_row"], m["prv"] if self._use_prv else None)
+                m["sin0"], m["lut_row"], m["prv"] if self._use_prv else None,
+                m["fsc"], m["fscf"], split_chroma=self.conf.s_video)
+            if self.conf.s_video:
+                block, cblock = block
         if self.secam is not None:
             sa = audio["secam"]
             if self.secam_device:
@@ -400,24 +460,47 @@ class Encoder:
                     self.secam, sa["meta"], yuv[1], yuv[2], sa["z0"])
             else:
                 add = sa["add"].to(torch.float32)
-            block = secam_mod.render(self.secam, block, add, sa["meta"])
+            if cblock is not None:
+                # no luma band-reject; the carrier rides the C channel
+                # (src/video.c:3206, 3219)
+                cblock = cblock + add
+            else:
+                block = secam_mod.render(self.secam, block, add, sa["meta"])
         block[0] *= first
+        if cblock is not None:
+            cblock[0] *= first
         x = block.reshape(-1)
+
+        if self.resampler is not None:
+            # pixel -> sample rate resample of the stream, halo lines
+            # included; from here on the stream is at the output width
+            x = resampler.device_resample_block(self.resampler, x)
+            p = self.out_params
+            W = p.width
+            n = nlines * W
 
         yq = None
         if self.vf_taps is not None:
             # one pass over the stream for all taps (src/fir.c:529-615;
             # the VSB "scomplex" filter gives I and Q)
             taps_r, taps_i = self.vf_taps
-            half = taps_r.shape[0] // 2
-            xs = x[W - half: W - half + n + taps_r.shape[0] - 1]
-            y = stream_fir(xs, taps_r, taps_i, n)
+            y = self._stream_fir(x, taps_r, taps_i, W, n)
             if taps_i is not None:
                 y, yq = y
                 yq = yq.view(nlines, W)
             y = y.view(nlines, W)
         else:
             y = x[W: W + n].view(nlines, W)
+        if cblock is not None:
+            # the S-Video C channel, through the low-pass when there is
+            # one (the reference's video filter runs two channels,
+            # src/video.c:4366); without real taps it replaces Q as it is
+            xc = cblock.reshape(-1)
+            if self.vf_taps is not None and self.vf_taps[1] is None:
+                yq = self._stream_fir(xc, self.vf_taps[0], None, W, n)
+            else:
+                yq = xc[W: W + n]
+            yq = yq.view(nlines, W)
 
         if not self.has_audio and not self.complex_out:
             if self.passthru is not None:
@@ -498,6 +581,14 @@ class Encoder:
             qq = wrap(qq + pt[..., 1])
         return torch.stack([ii, qq], dim=-1).to(torch.int16), carry
 
+    @staticmethod
+    def _stream_fir(x, taps_r, taps_i, W: int, n: int):
+        """The stream FIR over a block's flat stream (one halo line
+        before its n samples), from half a filter before the block."""
+        half = taps_r.shape[0] // 2
+        xs = x[W - half: W - half + n + taps_r.shape[0] - 1]
+        return stream_fir(xs, taps_r, taps_i, n)
+
     def _fm_args(self, d: dict, fw, st) -> tuple:
         """fm_add's segment arguments of a host-held FM carrier: assembled
         on the device from held values (fm_prepare) when the carrier's
@@ -535,8 +626,11 @@ class Encoder:
         k0 = block_no * nlines
         # With the video filter enabled the audio process consumes the
         # filter's one-line-delayed stream, so the audio timeline runs one
-        # line ahead of the output line it lands on (src/video.c:4675-4688)
-        a_k0 = k0 + (1 if self.conf.vfilter else 0)
+        # line ahead of the output line it lands on (src/video.c:4675-4688).
+        # The video resampler adds one more line of window lag (its warm-up
+        # line is swallowed, so the audio stream starts one line early).
+        a_k0 = k0 + (1 if self.conf.vfilter else 0) \
+            + (1 if self.resampler is not None else 0)
         dev = self.device
         args = {}
         if self.raw_bb is not None:
@@ -745,19 +839,37 @@ class Encoder:
         return self.encode_block(frame_no)
 
 
-def _check_supported(conf: VidConfig) -> None:
-    """Raise NotImplementedError for what the port does not cover yet."""
-    if conf.mac_mode is not None:
-        raise NotImplementedError("MAC modes are not ported yet")
-    if conf.colour_mode not in (ColourMode.PAL, ColourMode.NTSC,
-                                ColourMode.SECAM, ColourMode.MONOCHROME):
-        raise NotImplementedError(
-            f"colour mode {conf.colour_mode.name} is not ported yet")
-    if conf.s_video:
-        raise NotImplementedError("S-Video is not ported yet")
-    if conf.frame_orientation:
-        raise NotImplementedError("rotated frame orientations are not "
-                                  "ported yet")
+class _OrientedSource:
+    """The mode's frame orientation (a quarter-turn rotation and flips),
+    applied when a frame is read, as the reference does
+    (src/video.c:4881-4885)."""
+
+    def __init__(self, inner, orientation: int):
+        self.inner = inner
+        self.stateless = getattr(inner, "stateless", False)
+        self.orientation = orientation
+        w, h = inner.width, inner.height
+        if (orientation & 3) in (1, 3):
+            w, h = h, w
+        self.width, self.height = w, h
+        self.interlaced = getattr(inner, "interlaced", 0)
+        self._cache: tuple | None = None
+
+    def read_video(self, frame_no: int) -> np.ndarray:
+        rgb = self.inner.read_video(frame_no)
+        if self._cache is not None and self._cache[0] is rgb:
+            return self._cache[1]
+        out = frame_ops.rotate(rgb, self.orientation & 3)
+        if self.orientation & 4:
+            out = frame_ops.hflip(out)
+        if self.orientation & 8:
+            out = frame_ops.vflip(out)
+        out = np.ascontiguousarray(out)
+        self._cache = (rgb, out)
+        return out
+
+    def read_audio(self, start: int, count: int) -> np.ndarray:
+        return self.inner.read_audio(start, count)
 
 
 class _RawBBReader:

@@ -265,13 +265,15 @@ def synth_block(st: RasterStatics,
                 sin0: torch.Tensor,     # f32 [B]
                 lut_row: torch.Tensor = None,   # long [B] carrier LUT row
                 prv: torch.Tensor = None,       # long [B] previous line code
-                ) -> torch.Tensor:
+                fsc: torch.Tensor = None,       # long [B] FSC field channel
+                fscf: torch.Tensor = None,      # long [B] FSC flag selector
+                split_chroma: bool = False,
+                ):
     """Synthesise a block of lines -> f32 [B, width] (luma+chroma
     composite, int16-scaled).  Lines are independent; the only cross-line
-    term is the next line's leading sync tail."""
-    if st.fsc_mode is not None:
-        raise NotImplementedError("field-sequential colour modes are not "
-                                  "ported yet")
+    term is the next line's leading sync tail.  With split_chroma
+    (S-Video) the subcarrier is not added but returned as a second
+    [B, width] channel: (composite without chroma, chroma)."""
     y_img, u_img, v_img = yuv
     H = y_img.shape[-2]
 
@@ -281,16 +283,27 @@ def synth_block(st: RasterStatics,
     zero_row = torch.zeros((1, u_img.shape[-1]), dtype=u_img.dtype,
                            device=u_img.device)
     vy_safe = torch.where(vy >= 0, vy, H)
-    y_rows = torch.cat([y_img, black_row])[vy_safe]    # [B, frame_w]
+    if st.fsc_mode is not None:
+        # field-sequential colour: y_img is [3, H, W], one grey plane per
+        # B/G/R field (src/video.c:2989-2994), each followed by its black
+        # row; the line's field channel picks the plane
+        planes = torch.cat([torch.cat([y_img[c], black_row])
+                            for c in range(3)])
+        y_rows = planes[fsc * (H + 1) + vy_safe]
+    else:
+        y_rows = torch.cat([y_img, black_row])[vy_safe]    # [B, frame_w]
     u_rows = torch.cat([u_img, zero_row])[vy_safe]
     v_rows = torch.cat([v_img, zero_row])[vy_safe]
     return _synth_rows(st, y_rows, u_rows, v_rows, vy >= 0, base, nxt,
-                       burst, vswitch, al, ar, cos0, sin0, lut_row, prv)
+                       burst, vswitch, al, ar, cos0, sin0, lut_row, prv,
+                       fscf, split_chroma)
 
 
 def _synth_rows(st, y_rows, u_rows, v_rows, has_video_rows, base, nxt,
-                burst, vswitch, al, ar, cos0, sin0, lut_row, prv):
-    """Shared synthesis tail: source rows -> composite lines."""
+                burst, vswitch, al, ar, cos0, sin0, lut_row, prv, fscf,
+                split_chroma):
+    """Shared synthesis tail: source rows -> composite lines (and the
+    chroma channel with split_chroma)."""
     W = st.width
 
     # Place source columns into the line; at very low rates the active
@@ -352,5 +365,15 @@ def _synth_rows(st, y_rows, u_rows, v_rows, has_video_rows, base, nxt,
         i32 = torch.int32
         sub = ((cos_t.to(i32) * (vc * vswitch[:, None]).to(i32)
                 + sin_t.to(i32) * uc.to(i32)) >> 15).to(torch.float32)
-        out = out + torch.where(burst[:, None] > 0, sub, 0.0)
+        chroma = torch.where(burst[:, None] > 0, sub, 0.0)
+        if not split_chroma:
+            out = out + chroma
+    elif split_chroma:
+        chroma = torch.zeros_like(out)
+
+    if st.fsc_mode is not None:
+        # FSC ID flag pulses (src/video.c:3043-3063)
+        out = out + st.fsc_tpl[fscf]
+    if split_chroma:
+        return out, chroma
     return out

@@ -1,6 +1,8 @@
 """The port's command line (python -m hacktv_tpu_torch): its file output
 equals Encoder.encode_block byte for byte, PAL-I with NICAM included, and
-it refuses what it does not cover."""
+the JAX package's command line byte for byte on each switch that changes
+the mode's configuration, S-Video and --pixelrate among them; it refuses
+what it does not cover."""
 
 from __future__ import annotations
 
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-import _torch_common  # noqa: F401  (thread cap)
+import _torch_common as tc
+from hacktv_tpu import cli as jcli
 from hacktv_tpu_torch import Encoder
 from hacktv_tpu_torch import cli
 from hacktv_tpu_torch.config import get_mode
@@ -91,3 +94,59 @@ def test_cli_refuses(argv, exc, tmp_path):
     with pytest.raises(exc):
         cli.main(argv + ["--frames", "1", "--device", "cpu", "-o",
                          str(tmp_path / "x.bin")])
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "pal", "--s-video", "--filter"],
+    ["-m", "i", "--pixelrate", "14750000"],
+    ["-m", "pal-fm", "-D", "12000000", "--fm-energy-dispersal", "0.0625"],
+    ["-m", "pal", "-s", "4000000", "-l", "0.8", "-G", "1.2"],
+    ["-m", "i", "--volume", "0.5", "-i"],
+    ["-m", "pal", "-s", "4000000", "--nocolour", "--invert-video"],
+    ["-m", "ntsc", "-s", "13500000", "--nocolor"],
+    ["-m", "pal", "-s", "4000000", "--seconds", "0.08",
+     "--frames-per-block", "0"],
+    ["-m", "apollo-fsc", "-s", "14000000", "--frames", "3",
+     "--frames-per-block", "2"],
+], ids=lambda a: "".join(a[1:4]))
+def test_cli_matches_jax_cli(tmp_path, argv):
+    """The port's and the JAX package's command lines on the same switches
+    write the same bytes (one frame per block unless the case says)."""
+    if "-D" in argv:
+        tc.jax_runtime()
+    tail = [] if "--frames-per-block" in argv else ["--frames-per-block",
+                                                    "1"]
+    if "--frames" not in argv and "--seconds" not in argv:
+        tail += ["--frames", "1"]
+    out_t, out_j = tmp_path / "t.bin", tmp_path / "j.bin"
+    assert cli.main(argv + tail + ["--device", "cpu", "-o", str(out_t),
+                                   "test"]) == 0
+    assert jcli.main(argv + tail + ["-o", str(out_j), "test"]) == 0
+    got, ref = out_t.read_bytes(), out_j.read_bytes()
+    assert len(got) == len(ref) > 0
+    ndiff = np.count_nonzero(np.frombuffer(got, np.int16)
+                             != np.frombuffer(ref, np.int16))
+    assert got == ref, f"{ndiff} samples differ"
+
+
+@pytest.mark.parametrize("extra", [[], ["--json"]])
+def test_list_modes_matches_jax(capsys, extra):
+    assert cli.main(["--list-modes"] + extra) == 0
+    got = capsys.readouterr().out
+    assert jcli.main(["--list-modes"] + extra) == 0
+    assert got == capsys.readouterr().out
+    assert "apollo-fsc" in got and "nbtv" in got
+
+
+def test_cli_pixel_rate_warning(tmp_path, capsys):
+    """A rate without whole samples per line is warned about, as the
+    reference does, with the next valid rates; a valid one is not."""
+    cli.main(["-m", "pal", "-s", "8000000", "--pixelrate", "16000000",
+              "--frames", "1", "--device", "cpu", "-o",
+              str(tmp_path / "a.bin"), "test"])
+    assert "Warning" not in capsys.readouterr().err
+    cli.main(["-m", "pal", "-s", "4000100", "--frames", "1", "--device",
+              "cpu", "-o", str(tmp_path / "b.bin"), "test"])
+    err = capsys.readouterr().err
+    assert "Pixel rate 4000100 may not work well" in err
+    assert "Next valid pixel rates: 4000000, 4015625" in err

@@ -2,8 +2,9 @@
 versions (bit for bit, the FM pre-emphasis filter's 67 and 71 taps
 included); the NICAM coder and pulse synthesis, the SECAM chroma program,
 the AM carrier, the A2 pilot phase, FM video's closed form, the offset
-rotation and the encoder on the card against their CPU path (byte for
-byte).  They skip without an NVIDIA card.  The file imports neither jax nor hacktv_tpu, so on a machine
+rotation, the video resampler and the encoder (the legacy raster modes,
+S-Video and --pixelrate among its configurations) on the card against
+their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports neither jax nor hacktv_tpu, so on a machine
 without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -22,6 +23,7 @@ from hacktv_tpu_torch import Encoder, get_mode
 from hacktv_tpu_torch.audio import nicam_dev, synth
 from hacktv_tpu_torch.av.noise import NoiseSource
 from hacktv_tpu_torch.mux import MuxEncoder
+from hacktv_tpu_torch.ops import resampler as rs_mod
 from hacktv_tpu_torch.ops import stream_fir as sf
 from hacktv_tpu_torch.rf import ops as rf_ops
 from hacktv_tpu_torch.video import raster
@@ -289,3 +291,65 @@ def test_rf_encoder_card_matches_cpu(cuda, mode, rate, kw):
                                              c.encode_block(b))
         msg = f"{mode} block {b}: {snr:.1f} dB, max {maxerr}, {ndiff} differ"
         assert ndiff == 0, msg
+
+
+def _card_vs_cpu(cuda, name, make, blocks):
+    g, c = make(cuda), make("cpu")
+    for b in range(blocks):
+        snr, maxerr, ndiff = tc.error_report(g.encode_block(b),
+                                             c.encode_block(b))
+        msg = f"{name} block {b}: {snr:.1f} dB, max {maxerr}, {ndiff} differ"
+        assert ndiff == 0, msg
+
+
+def test_svideo_lowpass_card_matches_cpu(cuda):
+    """PAL S-Video with the low-pass: the stream FIR kernel runs twice a
+    block, on Y and on C; blocks 0-2 card against CPU."""
+    conf = replace(get_mode("pal"), s_video=True)
+    r0 = sf.fir_real.launches
+    _card_vs_cpu(cuda, "pal S-Video", lambda d: Encoder(
+        conf, 16_000_000, vfilter=True, device=d), 3)
+    assert sf.fir_real.launches == r0 + 6
+
+
+@pytest.mark.parametrize("mode,rate,kw", [
+    ("30", 100_000, {}),
+    ("nbtv-am", 100_000, {}),
+    ("apollo-fsc", 14_000_000, {}),
+    ("apollo-fsc-fm", 13_500_000, {}),
+    ("cbs405", 9_000_000, {}),
+    ("m-cbs405", 14_000_000, {}),
+    ("secam", 16_000_000, {"s_video": True}),
+    ("i", 16_000_000, {"s_video": True, "vfilter": True}),
+    ("i", 16_000_000, {"pixel_rate": 14_750_000}),
+    ("pal", 8_000_000, {"pixel_rate": 16_000_000}),
+    ("pal-fm", 20_250_000, {"pixel_rate": 13_500_000})])
+def test_raster_family_card_matches_cpu(cuda, mode, rate, kw):
+    """The rotated and field-sequential modes, S-Video and the resampler,
+    one-frame blocks 0-3 (every colour field), card against CPU."""
+    kw = dict(kw)
+    conf = get_mode(mode)
+    if kw.pop("s_video", False):
+        conf = replace(conf, s_video=True)
+    _card_vs_cpu(cuda, mode, lambda d: Encoder(conf, rate, device=d, **kw),
+                 4)
+
+
+@pytest.mark.parametrize("fpb", [1, 64])
+@pytest.mark.parametrize("mode,rate,px", [("i", 16_000_000, 14_750_000),
+                                          ("pal", 8_000_000, 16_000_000)])
+def test_resample_card_matches_cpu(cuda, mode, rate, px, fpb):
+    """device_resample_block on a seeded stream, both branches, one and
+    64 frames: the card equals the CPU byte for byte."""
+    conf = get_mode(mode)
+    w_px = VideoParams.create(conf, rate, px).width
+    w_out = VideoParams.create(conf, rate, 0).width
+    nlines = fpb * conf.lines
+    st = rs_mod.make_block_statics(rs_mod.Resampler.create(rate, px), w_px,
+                                   w_out, nlines)
+    flat = (np.random.default_rng(fpb).standard_normal(
+        (nlines + 2) * w_px) * 15000).astype(np.float32)
+    got = rs_mod.device_resample_block(st, torch.as_tensor(flat,
+                                                           device=cuda))
+    ref = rs_mod.device_resample_block(st, torch.as_tensor(flat))
+    assert torch.equal(got.cpu(), ref)

@@ -90,6 +90,39 @@ def test_statics_carry_over(name):
         _check(name, other.encode_block(b), ref[b], b)
 
 
+# name: (mode, sample rate, Encoder arguments)
+CARRY = {"apollo-fsc": ("apollo-fsc", 14_000_000, {}),
+         "i-pixelrate": ("i", 16_000_000, {"pixel_rate": 14_750_000})}
+
+
+@pytest.mark.parametrize("name", sorted(CARRY))
+def test_statics_carry_over_fsc_and_resampler(name):
+    """The FSC flag templates and the video resampler's bank and class
+    windows, taken from the JAX encoder, equal the port's under
+    convert.py's names; installed on a second port encoder (with the
+    port's own other statics) they give the JAX encoder's bytes."""
+    mode, rate, kw = CARRY[name]
+    t = TEncoder(mode, rate, device="cpu", **kw)
+    src = NoiseSource(t.params.active_width, t.conf.active_lines, seed=3)
+    j = JEncoder(mode, rate, source=src, **kw)
+    want = {}
+    if j.statics.fsc_tpl is not None:
+        want["fsc_tpl"] = np.asarray(j.statics.fsc_tpl)
+    if j.resampler is not None:
+        want["resampler.rs.T"] = j.resampler.rs.T
+        for f in convert.RESAMPLER_FIELDS:
+            want["resampler." + f] = getattr(j.resampler, f)
+    assert want
+    t = TEncoder(mode, rate, source=src, device="cpu", **kw)
+    arrays = convert.statics_to_numpy(t)
+    tc.assert_same({k: arrays[k] for k in want}, want, "statics")
+    other = TEncoder(mode, rate, source=src, device="cpu", **kw)
+    convert.statics_from_numpy(other, {**arrays, **want})
+    tc.assert_same(convert.statics_to_numpy(other), arrays, "installed")
+    for b in range(2):
+        _check(name, other.encode_block(b), j.encode_block(b), b)
+
+
 def test_blocks_must_be_sequential():
     t = TEncoder("m", 13_500_000, vfilter=True, device="cpu")
     t.encode_block_device(0)
@@ -100,7 +133,7 @@ def test_blocks_must_be_sequential():
 @pytest.mark.parametrize("mode,kw", [("l", {"pixel_rate": 13_500_000}),
                                      ("ntsc-bs", {}),
                                      ("pal", {"teletext": "demo"}),
-                                     ("30", {}),
+                                     ("pal", {"wss": "4:3"}),
                                      ("d2mac-fm", {})])
 def test_unported_options_raise(mode, kw):
     with pytest.raises(NotImplementedError):

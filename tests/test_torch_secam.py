@@ -152,15 +152,14 @@ def test_secam_blocks_must_be_sequential():
 
 
 @pytest.mark.parametrize("kw", [{"pixel_rate": 13_500_000},
-                                {"s_video": True},
+                                {"d11": "free"},
                                 {"moving": True}])
 def test_unported_secam_options_raise(kw):
-    """SECAM with the video resampler (--pixelrate), S-Video and a
-    moving-video source raise; none falls back to another path."""
+    """SECAM with the video resampler (--pixelrate, which the JAX package
+    cannot run either), with Discret 11 and with a moving-video source
+    raise; none falls back to another path."""
     kw = dict(kw)
     conf = tget_mode("l")
-    if kw.pop("s_video", False):
-        conf = replace(conf, s_video=True)
     if kw.pop("moving", False):
         # a source without `stateless` reads new frames as it goes
         kw["source"] = type("Moving", (), {"width": 10, "height": 10})()

@@ -259,14 +259,21 @@ def encoders() -> None:
             ("pal-fm", 16_000_000, dict(swap_iq=True)),
             ("i", 20_000_000, dict(offset=-2_250_000)),
             ("i", 20_000_000, dict(offset=2_250_000)),
-            ("l", 16_000_000, dict(secam_exact=True))):
-        probe = TEncoder(mode, rate, device="cpu")
+            ("l", 16_000_000, dict(secam_exact=True)),
+            ("apollo-fsc", 14_000_000, {}), ("cbs405", 9_000_000, {}),
+            ("i", 16_000_000, dict(pixel_rate=14_750_000)),
+            ("pal", 8_000_000, dict(pixel_rate=16_000_000)),
+            ("pal-fm", 20_250_000, dict(pixel_rate=13_500_000))):
+        probe = TEncoder(mode, rate, pixel_rate=kw.get("pixel_rate", 0),
+                         device="cpu")
         src = NoiseSource(probe.params.active_width, probe.conf.active_lines,
                           seed=7)
         j = JEncoder(mode, rate, source=src, **kw)
         t = TEncoder(mode, rate, source=src, device="cpu", **kw)
         nb = 3 if mode in ("secam", "l", "d", "a") or mode.endswith(
             "-fm") or {"a2stereo", "offset"} & set(kw) else 2
+        if mode in ("apollo-fsc", "cbs405"):
+            nb = 4                          # every colour field
         for b in range(nb):
             snr, maxerr, ndiff = tc.error_report(t.encode_block(b),
                                                  j.encode_block(b))
