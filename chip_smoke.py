@@ -16,7 +16,14 @@ mux-i-offset (MuxEncoder of two Encoder("i", 20 MS/s) at -2.25 and
 (Encoder("pal", 16 MS/s, --filter, --s-video): luma and chroma on two
 channels, each through the 51-tap low-pass) and i-pixelrate
 (Encoder("i", 16 MS/s, pixel_rate=14.75 MS/s): the PAL-I chain
-synthesised at 944 pixels a line and resampled to 1024 samples).
+synthesised at 944 pixels a line and resampled to 1024 samples),
+pal-i-teletext-vsb (Encoder("i", 16 MS/s, --filter, teletext from
+tests/data/demo.tti, WSS 16:9, VITS, VITC): the UK terrestrial signal),
+m-cc608-acp (Encoder("m", 13.5 MS/s, CEA-608, ACP, VITS, VITC): NTSC-M
+with line-21 captions and copy protection) and i-sis (Encoder("i", 16
+MS/s, sis="dcsis"): PAL-I with NICAM sound-in-syncs).  Teletext's clock
+is fixed, and caption pairs are queued with write_pair before the first
+block.
 
 Phases, one line each (any failure exits non-zero before the result):
 
@@ -46,13 +53,18 @@ Phases, one line each (any failure exits non-zero before the result):
      at PAL 8 MS/s from 16 MS/s (L/M = 1/2, windows across rows) on the
      card against the same call on the CPU: byte-equal required; its card
      time, peak card memory and bytes bound;
-  7. end to end: each path at 64 frames per block, seeded noise for
+  7. vbi: each VBI service of the three service paths at the 64-frame
+     block's shapes: its host block_arrays per block, its apply on the
+     card against the CPU (byte-equal required) and its card time;
+     teletext's render against its bound, and with TF32 on (byte-equal
+     to the CPU required);
+  8. end to end: each path at 64 frames per block, seeded noise for
      sound: 2 warm-up and 8 timed blocks (the host's enqueue time and the
      block time to the card's end; for FM video on the host, to the end
      of its collect_block, where the FM recurrence runs), with every
      kernel's launch count set to 0 just before a path and read just
      after;
-  8. the card against the port's CPU path, one-frame blocks 0-3 of each
+  9. the card against the port's CPU path, one-frame blocks 0-3 of each
      path and of SECAM composite, SECAM-L (device and host-exact
      chroma), 405-line system A (AM sound), NTSC-M with A2 at 13.5135
      MS/s, SECAM-FM, NTSC-FM with its 71-tap pre-emphasis at 20.25 MS/s,
@@ -60,10 +72,15 @@ Phases, one line each (any failure exits non-zero before the result):
      MS/s 2.25 MHz below centre, the rotated frames of Baird 30 and NBTV,
      field-sequential colour (Apollo, CBS 405), S-Video on SECAM and on
      PAL-I with its VSB filter, PAL at 8 MS/s from 16 MS/s pixels and
-     PAL-FM at 20.25 MS/s from 13.5 MS/s pixels: byte-identical required;
-  9. the command line, 4 frames each of -m i, -m pal-fm --filter, -m pal
-     --s-video --filter and -m i --pixelrate 14750000 to files through
-     the native sink.
+     PAL-FM at 20.25 MS/s from 13.5 MS/s pixels, and the services one at
+     a time (WSS auto, VITS on PAL and NTSC and at 13.5135 MS/s, where
+     the carrier comes from the angle addition, VITC on PAL-I and NTSC-M,
+     ACP on PAL and NTSC, raw teletext packets, SiS with the VSB filter):
+     byte-identical required;
+ 10. the command line, 4 frames each of -m i, -m i --filter with
+     teletext, WSS, VITS and VITC, -m pal-fm --filter, -m pal --s-video
+     --filter and -m i --pixelrate 14750000 to files through the native
+     sink.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -104,7 +121,13 @@ PATHS = {"m-vsb": ("m", 13_500_000, True, {}),
          "mux-i-offset": ("i", 20_000_000, False, {"mux": MUX_OFFSETS}),
          "pal-svideo-lowpass": ("pal", 16_000_000, True, {"s_video": True}),
          "i-pixelrate": ("i", 16_000_000, False,
-                         {"pixel_rate": 14_750_000})}
+                         {"pixel_rate": 14_750_000}),
+         "pal-i-teletext-vsb": ("i", 16_000_000, True, {
+             "teletext": "tests/data/demo.tti", "wss": "16:9",
+             "vits": True, "vitc": True}),
+         "m-cc608-acp": ("m", 13_500_000, False, {
+             "cc608": True, "acp": True, "vits": True, "vitc": True}),
+         "i-sis": ("i", 16_000_000, False, {"sis": "dcsis"})}
 # the card against the CPU: the paths and these
 CPU_PATHS = {**PATHS,
              "secam": ("secam", 16_000_000, False, {}),
@@ -128,10 +151,34 @@ CPU_PATHS = {**PATHS,
              "pal-8-from-16": ("pal", 8_000_000, False,
                                {"pixel_rate": 16_000_000}),
              "pal-fm-pixelrate": ("pal-fm", 20_250_000, False,
-                                  {"pixel_rate": 13_500_000})}
+                                  {"pixel_rate": 13_500_000}),
+             "pal-wss-auto": ("pal", 16_000_000, False, {"wss": "auto"}),
+             "pal-vits": ("pal", 16_000_000, False, {"vits": True}),
+             "ntsc-vits": ("ntsc", 13_500_000, False, {"vits": True}),
+             # no exact carrier rows at this rate: VITS reads the
+             # angle-addition carrier
+             "pal-vits-angle": ("pal", 13_513_500, False, {"vits": True}),
+             "m-vits-angle": ("m", 13_513_500, False, {"vits": True}),
+             "i-vitc": ("i", 16_000_000, False, {"vitc": True}),
+             "m-vitc": ("m", 13_500_000, False, {"vitc": True}),
+             "pal-acp": ("pal", 16_000_000, False, {"acp": True}),
+             "ntsc-acp": ("ntsc", 13_500_000, False, {"acp": True}),
+             "pal-teletext-raw": ("pal", 16_000_000, False, {
+                 "teletext": "raw:tests/data/raw_tt_packets.bin"}),
+             "i-sis-vsb": ("i", 16_000_000, True, {"sis": "dcsis"})}
 # one-frame blocks 0-3: SECAM's carry three times, every field of the
 # field-sequential modes, the second block of each
 CPU_BLOCKS = 4
+HERE = os.path.dirname(os.path.abspath(__file__))
+# teletext's header time, fixed so that the card and the CPU write the
+# same pages (unix seconds)
+TELETEXT_TIME = 1_200_000_000
+# CEA-608 pairs queued with write_pair before the first block
+CAPTIONS = [(0x14, 0x20), (0x48, 0x49), (0x21, 0x7F), (0x14, 0x2F)]
+
+
+def teletext_clock():
+    return TELETEXT_TIME
 
 
 def build(spec, device, source=None, frames_per_block=1):
@@ -144,12 +191,25 @@ def build(spec, device, source=None, frames_per_block=1):
     offsets = kw.pop("mux", None)
     if kw.pop("s_video", False):
         mode = replace(get_mode(mode), s_video=True)
+    if "teletext" in kw:
+        # tests/data is found beside this script, not in the working
+        # directory
+        tt = kw["teletext"]
+        raw = tt.startswith("raw:")
+        kw["teletext"] = ("raw:" if raw else "") + os.path.join(
+            HERE, tt[4:] if raw else tt)
+        kw["teletext_clock"] = teletext_clock
     mk = lambda **extra: Encoder(mode, rate, vfilter=vfilter, source=source,
                                  frames_per_block=frames_per_block,
                                  device=device, **kw, **extra)
-    if offsets is None:
-        return mk()
-    return MuxEncoder([mk(offset=o) for o in offsets])
+    if offsets is not None:
+        return MuxEncoder([mk(offset=o) for o in offsets])
+    enc = mk()
+    for svc in enc.services:
+        if hasattr(svc, "write_pair"):
+            for pair in CAPTIONS:
+                svc.write_pair(*pair)
+    return enc
 
 
 def noise_source(spec):
@@ -511,6 +571,99 @@ def resample_phase() -> None:
         torch.cuda.empty_cache()
 
 
+def vbi_phase() -> None:
+    """The VBI services at the 64-frame block's shapes, on the e2e paths'
+    encoders (the card's and the CPU's, their host state advanced
+    together): each service's host block_arrays per block (median of
+    blocks 1-3), its apply on the card (CUDA events) against the same call
+    on the CPU on a seeded block and the line carrier, chained in the
+    registration order as the step chains them: byte-equal required.
+    Then teletext's render (bits @ basis) on the card against its bound,
+    the larger of 2 * lines * 360 * W FLOP over the f32 peak and its bytes
+    (bits and basis read once, the f32 lines written once) over the memory
+    rate; and the render with TF32 on against the CPU, with the count of
+    values a plain f32 matmul under TF32 would get wrong."""
+    from hacktv_tpu_torch.services import arrays_to_device
+    from hacktv_tpu_torch.video import raster
+    for path in ("pal-i-teletext-vsb", "m-cc608-acp", "i-sis"):
+        spec = PATHS[path]
+        g = build(spec, "cuda", noise_source(spec), FPB)
+        c = build(spec, "cpu", noise_source(spec), FPB)
+        nl = FPB * g.params.lines
+        n = nl + 1 + g.halo_after
+        W = g.params.width
+        host_s = {type(svc).__name__: [] for svc in g.services}
+        for b in range(1, 4):
+            cg, cc = np.zeros(n, bool), np.zeros(n, bool)
+            arrs = []
+            for sg, sc in zip(g.services, c.services):
+                t = time.perf_counter()
+                ag = sg.block_arrays(b * nl - 1, n, cg)
+                host_s[type(sg).__name__].append(time.perf_counter() - t)
+                arrs.append((ag, sc.block_arrays(b * nl - 1, n, cc)))
+        rng = np.random.default_rng(31)
+        video = rng.integers(-12000, 24000, (n, W)).astype(np.float32)
+        mg, mc = g._block_meta(3), c._block_meta(3)
+        lut_g = raster.carrier_lut(g.dstatics, mg["cos0"], mg["sin0"],
+                                   mg["lut_row"])
+        lut_c = raster.carrier_lut(c.dstatics, mc["cos0"], mc["sin0"],
+                                   mc["lut_row"])
+        out_g, out_c = torch.as_tensor(video, device="cuda"), \
+            torch.as_tensor(video)
+        for sg, sc, (ag, ac) in zip(g.services, c.services, arrs):
+            name = type(sg).__name__
+            dg = arrays_to_device(ag, "cuda")
+            rg = sg.apply(out_g, dg, lut_g)
+            rc = sc.apply(out_c, arrays_to_device(ac, "cpu"), lut_c)
+            diff = int(np.count_nonzero(rg.cpu().numpy() != rc.numpy()))
+            ms = cuda_ms(lambda: sg.apply(out_g, dg, lut_g), 5)
+            host_ms = statistics.median(host_s[name]) * 1e3
+            phase("vbi", path=path, service=name, lines=n, width=W,
+                  block_arrays_ms=f"{host_ms:.3f}",
+                  apply_ms=f"{ms:.3f}", card_vs_cpu_differing=diff,
+                  card=json.dumps(CARD["smi"]))
+            if diff:
+                fail(f"vbi {path} {name}: the card differs from the CPU")
+            if name == "Teletext":
+                render_phase(sg, dg["packed"], n, W)
+            out_g, out_c = rg, rc
+        del g, c, out_g, out_c, rg, rc
+        torch.cuda.empty_cache()
+
+
+def render_phase(svc, packed, n: int, W: int) -> None:
+    """Teletext's render at the block's shape: its card time against its
+    bound, and exactness with TF32 on."""
+    from hacktv_tpu_torch.services import vbidata
+    bits = vbidata.device_unpack_bits(packed, 360)
+    basis = svc.d_basis
+    ms = cuda_ms(lambda: vbidata.render(bits, basis), 5)
+    flops = 2 * n * 360 * W
+    nbytes = 4 * (n * 360 + 360 * W + n * W)
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    ref = vbidata.render(bits.cpu(), basis.cpu())
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = vbidata.render(bits, basis).cpu()
+        plain = torch.matmul(bits, basis).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    diff = int((tf32 != ref).sum())
+    phase("vbi-render", service="Teletext", lines=n, width=W,
+          packets=int((packed[:, 0] != 0).sum()), ms=f"{ms:.4f}",
+          bound_ms=f"{bound_ms:.4f}",
+          bound_by="operations" if t_ops >= t_bytes else "bytes",
+          bound_share=f"{bound_ms / ms:.3f}", flop=flops, bytes=nbytes,
+          tf32_on_differing=diff,
+          f32_matmul_under_tf32_differing=int((plain != ref).sum()),
+          card=json.dumps(CARD["smi"]))
+    if diff:
+        fail("vbi render: TF32 changed the card's result")
+
+
 def e2e_phase(sf, path: str, profile_dir) -> dict:
     mode, rate, vfilter, kw = PATHS[path]
     enc = build(PATHS[path], "cuda", noise_source(PATHS[path]), FPB)
@@ -629,6 +782,8 @@ def cpu_compare_phase() -> None:
         src = noise_source(spec)
         g = build(spec, "cuda", src)
         c = build(spec, "cpu", src)
+        if path.endswith("-angle") and g.statics.carrier_rows is not None:
+            fail(f"{path}: the mode has exact carrier rows at this rate")
         for b in range(CPU_BLOCKS):
             a = g.encode_block(b).astype(np.int64)
             r = c.encode_block(b).astype(np.int64)
@@ -648,9 +803,15 @@ def cpu_compare_phase() -> None:
 def cli_phase() -> None:
     """Four frames from the command line to a file through the native
     sink: PAL-I, PAL-FM with the pre-emphasis filter, PAL S-Video with the
-    low-pass and PAL-I from 14.75 MS/s pixels."""
+    low-pass, PAL-I from 14.75 MS/s pixels and PAL-I with teletext, WSS,
+    VITS and VITC through the VSB filter (the teletext clock fixed)."""
+    demo = os.path.join(HERE, "tests", "data", "demo.tti")
+    env = {**os.environ, "HACKTV_TPU_TELETEXT_TIME": str(TELETEXT_TIME)}
     with tempfile.TemporaryDirectory() as tmp:
         for args, frame_samples in ((["-m", "i"], 640_000),
+                                    (["-m", "i", "--filter", "--teletext",
+                                      demo, "--wss", "16:9", "--vits",
+                                      "--vitc"], 640_000),
                                     (["-m", "pal-fm", "--filter", "-s",
                                       "20250000"], 810_000),
                                     (["-m", "pal", "--s-video", "--filter"],
@@ -662,13 +823,14 @@ def cli_phase() -> None:
             r = subprocess.run(
                 [sys.executable, "-m", "hacktv_tpu_torch", *args,
                  "--frames", "4", "-o", out, "test"],
-                capture_output=True, text=True, timeout=600)
+                capture_output=True, text=True, timeout=600, env=env)
             if r.returncode != 0:
                 fail(f"cli {args} exited {r.returncode}: "
                      f"{r.stderr[-2000:]}")
             size = os.path.getsize(out)
             data = np.fromfile(out, np.int16)
-            phase("cli", args="".join(args), bytes=size,
+            phase("cli", args="".join(a for a in args if a != demo),
+                  bytes=size,
                   seconds=f"{time.perf_counter() - t:.1f}")
             if size != 4 * frame_samples * 2 * 2:
                 fail(f"cli {args} wrote {size} bytes, expected "
@@ -683,8 +845,7 @@ def main() -> int:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    sys.path.insert(0, HERE)
     import threading
 
     from hacktv_tpu_torch import runtime
@@ -725,6 +886,7 @@ def main() -> int:
     nicam_phase(Encoder)
     secam_phase(Encoder)
     resample_phase()
+    vbi_phase()
     launches = {}
     for path in PATHS:
         launches[path] = e2e_phase(sf, path, args.profile)

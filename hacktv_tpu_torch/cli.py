@@ -9,11 +9,14 @@ RATE, -l LEVEL, -D DEVIATION, -G GAMMA, --fm-energy-dispersal, -i,
 --volume, --nocolour/--nocolor, --s-video, --invert-video, --filter,
 --noaudio, --nonicam, --a2stereo, --swap-iq, --offset HZ, --passthru FILE,
 --raw-bb-file FILE, --raw-bb-blanking N, --raw-bb-white N,
---secam-field-id, --secam-field-id-lines N, --secam-exact, -t TYPE,
--o FILE, --frames N, --seconds S, --frames-per-block N, --device
-{cuda,cpu} and the input `test`.  The output goes through the native
-runtime's threaded file sink (runtime.NativeFileSink), built at first
-use; without a C++ compiler it raises.  Any other switch is refused;
+--secam-field-id, --secam-field-id-lines N, --secam-exact, the VBI
+services --teletext PATH, --wss MODE, --vits, --vitc, --cc608, --acp and
+--sis MODE, -t TYPE, -o FILE, --frames N, --seconds S,
+--frames-per-block N, --device {cuda,cpu} and the input `test`.
+HACKTV_TPU_TELETEXT_TIME=<unix seconds> fixes the teletext clock, as for
+hacktv_tpu, so that a run is deterministic.  The output goes through the
+native runtime's threaded file sink (runtime.NativeFileSink), built at
+first use; without a C++ compiler it raises.  Any other switch is refused;
 modes and options that the port does not cover yet raise
 NotImplementedError.
 """
@@ -23,6 +26,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import sys
 from dataclasses import replace
 
@@ -70,6 +74,17 @@ def _build_parser() -> argparse.ArgumentParser:
     a("--secam-field-id-lines", type=int, default=None)
     a("--secam-exact", action="store_true",
       help="the host-exact SECAM chroma (the default of secam-fm)")
+    a("--teletext", default=None, metavar="PATH",
+      help="teletext from a .tti file, a directory of them, or raw:FILE "
+           "of 42-byte packets")
+    a("--wss", default=None, metavar="MODE",
+      help="widescreen signalling on line 23 (4:3, 16:9, auto, ...)")
+    a("--vits", action="store_true", help="insertion test signals")
+    a("--vitc", action="store_true", help="vertical interval timecode")
+    a("--cc608", action="store_true", help="CEA-608 closed captions")
+    a("--acp", action="store_true", help="analogue copy protection")
+    a("--sis", default=None, metavar="MODE",
+      help="sound-in-syncs (dcsis)")
     a("-t", "--type", default="int16",
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
     a("--frames", type=int, default=0,
@@ -127,6 +142,24 @@ def _apply_overrides(conf, args):
     return replace(conf, **kw) if kw else conf
 
 
+def _check_services(args, conf) -> None:
+    """The reference's service/mode cross-checks (src/hacktv.c:1184-1437),
+    with hacktv_tpu's messages."""
+    if args.acp and conf.lines not in (525, 625):
+        raise SystemExit("Analogue Copy Protection is only compatible with "
+                         "525 and 625 line modes")
+    if args.teletext and conf.lines != 625:
+        raise SystemExit("Teletext is only available with 625 line modes")
+    if args.wss and conf.lines != 625:
+        raise SystemExit("WSS is only supported for 625 line modes")
+    if (args.vits or args.vitc or args.cc608) \
+            and conf.lines not in (525, 625):
+        raise SystemExit("VITS/VITC/CEA-608 are only supported for 625 "
+                         "and 525 line raster modes")
+    if args.sis and conf.lines != 625:
+        raise SystemExit("SiS is only available with 625 line modes")
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     if args.list_modes:
@@ -156,6 +189,7 @@ def main(argv=None) -> int:
               "mode.", file=sys.stderr)
         print(f"Next valid pixel rates: {m * r}, {m * (r + 1)}",
               file=sys.stderr)
+    _check_services(args, conf)
 
     frames = args.frames
     if args.seconds:
@@ -166,9 +200,17 @@ def main(argv=None) -> int:
     if fpb <= 0:
         fpb = min(16, frames) if frames else 16
 
+    tt_clock = None
+    if os.environ.get("HACKTV_TPU_TELETEXT_TIME"):
+        tt_time = int(os.environ["HACKTV_TPU_TELETEXT_TIME"])
+        tt_clock = lambda: tt_time
+
     from .encoder import Encoder
     from .runtime import NativeFileSink
     enc = Encoder(conf, sample_rate, pixel_rate, frames_per_block=fpb,
+                  teletext=args.teletext, teletext_clock=tt_clock,
+                  wss=args.wss, vits=args.vits, vitc=args.vitc,
+                  cc608=args.cc608, acp=args.acp, sis=args.sis,
                   vfilter=args.vfilter, a2stereo=args.a2stereo,
                   offset=int(args.offset), swap_iq=args.swap_iq,
                   passthru=args.passthru, raw_bb_file=args.raw_bb_file,

@@ -23,7 +23,13 @@ the host-exact FM carriers `fm_exact._lut` (sound) and
 `_secam_lut`.  The video resampler's polyphase bank and class windows go
 under `resampler.` + `rs.T`, `Td`, `offq`, `offr`; the field-sequential
 flag templates under `fsc_tpl`.  `carrier_rows`, a (cos, sin) pair of
-[P, W] tables, travels stacked as one [2, P, W] array.
+[P, W] tables, travels stacked as one [2, P, W] array.  Each VBI
+service's arrays go under "services.<class>.<attribute>", the names of
+the JAX package's service objects: `WSS.basis`, `bits` (its waveform row,
+`bits @ basis`, is rebuilt from them each block, as there); `VITS.r_tpl`,
+`c_tpl`, `cs`; `VITC.basis`; `CC608.basis`, `cri`; `ACP.psync_mask`,
+`pagc_mask`; `Teletext.basis`; `SiS.basis`, `blank_win`,
+`warmup_spill`.
 
     arrays = statics_to_numpy(enc)          # {name: np.ndarray}
     statics_from_numpy(other_enc, arrays)   # installs them on its device
@@ -106,7 +112,15 @@ def statics_to_numpy(enc) -> dict:
         out["resampler.rs.T"] = enc.resampler.rs.T
         for f in RESAMPLER_FIELDS:
             out["resampler." + f] = getattr(enc.resampler, f)
+    for svc in enc.services:
+        for f in svc.STATICS:
+            out[service_key(svc, f)] = np.asarray(getattr(svc, f))
     return out
+
+
+def service_key(svc, field: str) -> str:
+    """The name a service's array travels under."""
+    return f"services.{type(svc).__name__}.{field}"
 
 
 def statics_from_numpy(enc, arrays: dict) -> None:
@@ -178,6 +192,14 @@ def statics_from_numpy(enc, arrays: dict) -> None:
             Td=np.asarray(arrays["resampler.Td"], np.int32),
             offq=np.asarray(arrays["resampler.offq"], np.int64),
             offr=np.asarray(arrays["resampler.offr"], np.int64))
+    for svc in enc.services:
+        for f in svc.STATICS:
+            a = np.asarray(arrays[service_key(svc, f)])
+            if isinstance(getattr(svc, f), tuple):
+                setattr(svc, f, tuple(int(x) for x in a))
+            else:
+                setattr(svc, f, np.array(a, dtype=getattr(svc, f).dtype))
+        svc.upload()
     if "pulse" in arrays:
         enc.nicam_statics = dataclasses.replace(
             enc.nicam_statics, **{f: t(arrays[f]) for f in NICAM_FIELDS})

@@ -60,6 +60,14 @@ from .config.standards import (ColourMode, Modulation, OutputType, VidConfig,
 from .ops import resampler
 from .ops.stream_fir import stream_fir
 from .rf import ops as rf_ops
+from .services import arrays_to_device
+from .services.acp import ACP
+from .services.cc608 import CC608
+from .services.sis import SiS
+from .services.teletext import Teletext
+from .services.vitc import VITC
+from .services.vits import VITS
+from .services.wss import WSS
 from .video import raster
 from .video import secam as secam_mod
 from .video.params import VideoParams
@@ -87,7 +95,10 @@ class Encoder:
                  a2stereo: bool = False, passthru: str | None = None,
                  raw_bb_file: str | None = None, raw_bb_blanking: int = 0,
                  raw_bb_white: int = 0x300,
-                 secam_exact: bool | None = None, **unported):
+                 secam_exact: bool | None = None, wss: str | None = None,
+                 teletext: str | None = None, vits: bool = False,
+                 vitc: bool = False, cc608: bool = False, acp: bool = False,
+                 sis: str | None = None, teletext_clock=None, **unported):
         for name, value in unported.items():
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -163,7 +174,44 @@ class Encoder:
         elif op.vfilter_taps is not None:
             self.vf_taps = (torch.as_tensor(op.vfilter_taps), None)
 
-        self.halo_after = 1
+        # VBI data services, in the reference's registration order
+        # (src/video.c:4215-4359): vits, wss, acp, vitc, cc608, sis,
+        # teletext
+        self.services = []
+        dev = self.device
+        if vits:
+            self.services.append(VITS(
+                p, conf.colour_mode == ColourMode.PAL,
+                fused_mix=self.statics.carrier_rows is not None, device=dev))
+        if wss:
+            self.services.append(WSS(p, wss, device=dev))
+        if acp:
+            self.services.append(ACP(p, device=dev))
+        if vitc:
+            self.services.append(VITC(p, device=dev))
+        if cc608:
+            self.services.append(CC608(p, source=self.source, device=dev))
+        if sis:
+            # the sis process reads the sound through a chain of its own:
+            # the audio line process trails it by 1 line plus the
+            # threaded video filter's window (src/video.c:4675-4688)
+            lag = 1
+            nt = (len(p.vfilter_ctaps) if p.vfilter_ctaps is not None else
+                  len(p.vfilter_taps) if p.vfilter_taps is not None else 0)
+            if nt:
+                lag += 1 + (nt // 2 + p.width - 1) // p.width
+            sis_chain = AudioChain(conf, p.sample_rate, p.width, self.source)
+            self.services.append(SiS(p, sis, sis_chain, lag, device=dev))
+        if teletext:
+            self.services.append(Teletext(p, teletext, clock=teletext_clock,
+                                          device=dev))
+        # services that read lines ahead extend the bottom halo of each
+        # synthesised block
+        self.halo_after = max([1] + [getattr(s, "lookahead", 1)
+                                     for s in self.services])
+        # only VITS's chroma part reads the line carrier
+        self._services_lut = any(getattr(s, "colour", False)
+                                 for s in self.services)
         # S-Video puts luma and chroma on two channels, like a complex
         # stream (src/video.c:3032: chroma written to the second channel)
         self.complex_out = (conf.output_type == OutputType.COMPLEX
@@ -253,11 +301,13 @@ class Encoder:
         # startup the un-rendered next slots keep width 0 for one ring
         # cycle, so vbidata truncates the forward sync spill of the first
         # (olines - 1) lines there.  (raster or raw baseband, [SECAM],
-        # [vfilter], audio, [FM video], [swap], [offset], [passthru],
-        # output)
+        # [services], [resampler], [vfilter], audio, [FM video], [swap],
+        # [offset], [passthru], output; each ported service keeps one
+        # ring line, src/video.c:4215-4359)
         procs = [(1 if raw_bb_file else 3, False)]
         if self.secam is not None:
             procs.append((1, True))
+        procs += [(1, False)] * len(self.services)
         if self.resampler is not None:
             procs.append((2, True))
         if self.vf_taps is not None:
@@ -466,6 +516,14 @@ class Encoder:
                 cblock = cblock + add
             else:
                 block = secam_mod.render(self.secam, block, add, sa["meta"])
+        if self.services:
+            # the line's colour carrier for VITS's chroma part: the exact
+            # LUT rows, the angle addition, or none (no colour carrier)
+            lut = (raster.carrier_lut(self.dstatics, m["cos0"], m["sin0"],
+                                      m["lut_row"])
+                   if self._services_lut else None)
+            for svc, arr in zip(self.services, audio["services"]):
+                block = svc.apply(block, arr, lut)
         block[0] *= first
         if cblock is not None:
             cblock[0] *= first
@@ -633,6 +691,13 @@ class Encoder:
             + (1 if self.resampler is not None else 0)
         dev = self.device
         args = {}
+        if self.services:
+            # one claimed mask: a service skips lines an earlier one took
+            n = nlines + 1 + self.halo_after
+            claimed = np.zeros(n, dtype=bool)
+            args["services"] = tuple(
+                arrays_to_device(svc.block_arrays(k0 - 1, n, claimed), dev)
+                for svc in self.services)
         if self.raw_bb is not None:
             args["rawbb"] = torch.as_tensor(self.raw_bb.block(
                 k0 - 1, nlines + 1 + self.halo_after), device=dev)

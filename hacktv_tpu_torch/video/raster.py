@@ -299,6 +299,25 @@ def synth_block(st: RasterStatics,
                        fscf, split_chroma)
 
 
+def carrier_lut(st: RasterStatics, cos0, sin0, lut_row):
+    """The colour subcarrier of each line, (cos, sin) [B, W] at 32767
+    scale: the exact LUT row per line when there is one, otherwise angle
+    addition against the static per-column table; None without a colour
+    carrier."""
+    if st.carrier_rows is not None:
+        return st.carrier_rows[0][lut_row], st.carrier_rows[1][lut_row]
+    if st.carrier_cos is None:
+        return None
+    # mirrors XLA's CPU contraction: of a*b +- c*d, c*d is rounded and
+    # a*b fused into the add or subtract
+    c0, s0 = cos0[:, None], sin0[:, None]
+    cos_t = torch.round(fma32(c0, st.carrier_cos,
+                              -(s0 * st.carrier_sin)) * 32767.0)
+    sin_t = torch.round(fma32(s0, st.carrier_cos,
+                              c0 * st.carrier_sin) * 32767.0)
+    return cos_t, sin_t
+
+
 def _synth_rows(st, y_rows, u_rows, v_rows, has_video_rows, base, nxt,
                 burst, vswitch, al, ar, cos0, sin0, lut_row, prv, fscf,
                 split_chroma):
@@ -345,19 +364,7 @@ def _synth_rows(st, y_rows, u_rows, v_rows, has_video_rows, base, nxt,
             bn = st.burst_u.shape[0]
             uc[:, bl:bl + bn] = st.burst_u[None, :]
             vc[:, bl:bl + bn] = st.burst_v[None, :]
-        # Colour subcarrier: exact LUT row per line when available,
-        # otherwise angle addition against the static per-column table.
-        if st.carrier_rows is not None:
-            cos_t = st.carrier_rows[0][lut_row]
-            sin_t = st.carrier_rows[1][lut_row]
-        else:
-            # mirrors XLA's CPU contraction: of a*b +- c*d, c*d is rounded
-            # and a*b fused into the add or subtract
-            c0, s0 = cos0[:, None], sin0[:, None]
-            cos_t = torch.round(fma32(c0, st.carrier_cos,
-                                      -(s0 * st.carrier_sin)) * 32767.0)
-            sin_t = torch.round(fma32(s0, st.carrier_cos,
-                                      c0 * st.carrier_sin) * 32767.0)
+        cos_t, sin_t = carrier_lut(st, cos0, sin0, lut_row)
         # The reference's mix is integer: (lut.i*V*pal + lut.q*U) >> 15
         # (src/video.c:3031-3041).  The products reach ~2^30, beyond
         # f32's 24-bit mantissa, so the multiply-accumulate-shift runs in

@@ -86,7 +86,7 @@ def test_cli_noaudio_and_type(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--teletext", "x"], SystemExit),          # switch not in the subset
+    (["--videocrypt", "free"], SystemExit),     # switch not in the subset
     (["-m", "d2mac-fm"], NotImplementedError),  # MAC
     (["-m", "pal", "clip.mp4"], NotImplementedError),
 ])
@@ -127,6 +127,59 @@ def test_cli_matches_jax_cli(tmp_path, argv):
     ndiff = np.count_nonzero(np.frombuffer(got, np.int16)
                              != np.frombuffer(ref, np.int16))
     assert got == ref, f"{ndiff} samples differ"
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "i", "--teletext", "tests/data/demo.tti", "--wss", "16:9",
+     "--vits", "--vitc"],
+    ["-m", "pal", "--teletext", "raw:tests/data/raw_tt_packets.bin"],
+    ["-m", "pal", "--wss", "auto"],
+    ["-m", "ntsc", "-s", "13500000", "--vits", "--vitc"],
+    ["-m", "ntsc", "-s", "13500000", "--cc608", "--acp"],
+    ["-m", "pal", "--acp", "--cc608"],
+    ["-m", "pal", "--sis", "dcsis"],
+], ids=lambda a: "".join(a[1:6]))
+def test_cli_services_match_jax_cli(tmp_path, monkeypatch, argv):
+    """Each service switch: the port's and the JAX package's command lines
+    write the same bytes over two one-frame blocks, the teletext clock
+    fixed by HACKTV_TPU_TELETEXT_TIME as for hacktv_tpu."""
+    monkeypatch.setenv("HACKTV_TPU_TELETEXT_TIME", "1200000000")
+    monkeypatch.chdir(REPO)
+    if "--sis" in argv or argv[1] == "i":
+        # the JAX package's NICAM frame coder runs in its native runtime
+        tc.jax_runtime()
+    tail = ["--frames-per-block", "1", "--frames", "2"]
+    out_t, out_j = tmp_path / "t.bin", tmp_path / "j.bin"
+    assert cli.main(argv + tail + ["--device", "cpu", "-o", str(out_t),
+                                   "test"]) == 0
+    assert jcli.main(argv + tail + ["-o", str(out_j), "test"]) == 0
+    got, ref = out_t.read_bytes(), out_j.read_bytes()
+    assert len(got) == len(ref) > 0
+    ndiff = np.count_nonzero(np.frombuffer(got, np.int16)
+                             != np.frombuffer(ref, np.int16))
+    assert got == ref, f"{ndiff} samples differ"
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "m", "--teletext", "tests/data/demo.tti"],
+    ["-m", "ntsc", "--wss", "4:3"],
+    ["-m", "405", "--vits"],
+    ["-m", "819", "--vitc"],
+    ["-m", "405", "--cc608"],
+    ["-m", "240", "--acp"],
+    ["-m", "m", "--sis", "dcsis"],
+], ids=lambda a: "".join(a[1:4]))
+def test_cli_service_exits_match_jax(tmp_path, capsys, argv):
+    """The JAX command line's compatibility exits: each service on a mode
+    it does not support exits with the same message."""
+    msgs = []
+    for main in (cli.main, jcli.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["--frames", "1", "-o", str(tmp_path / "x.bin"),
+                         "test"] + (["--device", "cpu"]
+                                    if main is cli.main else []))
+        msgs.append(str(e.value.code))
+    assert msgs[0] == msgs[1] and "only" in msgs[0]
 
 
 @pytest.mark.parametrize("extra", [[], ["--json"]])

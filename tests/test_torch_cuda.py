@@ -2,16 +2,18 @@
 versions (bit for bit, the FM pre-emphasis filter's 67 and 71 taps
 included); the NICAM coder and pulse synthesis, the SECAM chroma program,
 the AM carrier, the A2 pilot phase, FM video's closed form, the offset
-rotation, the video resampler and the encoder (the legacy raster modes,
-S-Video and --pixelrate among its configurations) on the card against
-their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports neither jax nor hacktv_tpu, so on a machine
-without JAX it runs alone:
+rotation, the video resampler, the VBI services' render under TF32 and
+the encoder (the legacy raster modes, S-Video, --pixelrate and the VBI
+services among its configurations) on the card against their CPU path
+(byte for byte).  They skip without an NVIDIA card.  The file imports
+neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 
 import numpy as np
@@ -353,3 +355,71 @@ def test_resample_card_matches_cpu(cuda, mode, rate, px, fpb):
                                                            device=cuda))
     ref = rs_mod.device_resample_block(st, torch.as_tensor(flat))
     assert torch.equal(got.cpu(), ref)
+
+
+TT_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+
+
+def _tt_clock():
+    return 1_200_000_000
+
+
+# name: (mode, sample rate, Encoder arguments)
+SERVICE_CASES = {
+    "pal-i-teletext-vsb": ("i", 16_000_000, {
+        "vfilter": True, "teletext": "demo.tti", "wss": "16:9",
+        "vits": True, "vitc": True}),
+    "m-cc608-acp": ("m", 13_500_000, {
+        "cc608": True, "acp": True, "vits": True, "vitc": True}),
+    "pal-wss-auto": ("pal", 16_000_000, {"wss": "auto"}),
+    "pal-vits-angle": ("pal", 13_513_500, {"vits": True}),
+    "m-vits-angle": ("m", 13_513_500, {"vits": True}),
+    "ntsc-acp": ("ntsc", 13_500_000, {"acp": True}),
+    "pal-teletext-raw": ("pal", 16_000_000, {
+        "teletext": "raw:raw_tt_packets.bin"}),
+    "i-sis-vsb": ("i", 16_000_000, {"sis": "dcsis", "vfilter": True})}
+
+
+@pytest.mark.parametrize("name", sorted(SERVICE_CASES))
+def test_services_card_match_cpu(cuda, name):
+    """The VBI services, one-frame blocks 0-3, card against CPU (caption
+    pairs queued on both, teletext's clock fixed)."""
+    mode, rate, kw = SERVICE_CASES[name]
+    kw = dict(kw)
+    if "teletext" in kw:
+        tt = kw["teletext"]
+        kw["teletext"] = (("raw:" + os.path.join(TT_DATA, tt[4:]))
+                          if tt.startswith("raw:")
+                          else os.path.join(TT_DATA, tt))
+        kw["teletext_clock"] = _tt_clock
+
+    def make(d):
+        enc = Encoder(mode, rate, device=d, **kw)
+        for svc in enc.services:
+            if hasattr(svc, "write_pair"):
+                for pair in ((0x14, 0x20), (0x48, 0x49)):
+                    svc.write_pair(*pair)
+        return enc
+    _card_vs_cpu(cuda, name, make, 4)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_render_exact_under_tf32(cuda, tf32):
+    """vbidata.render on the card equals the CPU's whether TF32 is on or
+    off: it sums in f64 (teletext's pulses reach about 15,000, past TF32's
+    11 bits)."""
+    from hacktv_tpu_torch.services import vbidata
+    from hacktv_tpu_torch.services.teletext import Teletext
+    p = VideoParams.create(get_mode("i"), 16_000_000, 0)
+    basis = torch.as_tensor(Teletext(p, os.path.join(TT_DATA, "demo.tti"),
+                                     device=cuda).basis)
+    bits = torch.as_tensor((np.random.default_rng(4).random(
+        (2048, 360)) < 0.4).astype(np.float32))
+    ref = vbidata.render(bits, basis)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        got = vbidata.render(bits.to(cuda), basis.to(cuda)).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    assert torch.equal(got, ref)

@@ -132,8 +132,8 @@ def test_blocks_must_be_sequential():
 
 @pytest.mark.parametrize("mode,kw", [("l", {"pixel_rate": 13_500_000}),
                                      ("ntsc-bs", {}),
-                                     ("pal", {"teletext": "demo"}),
-                                     ("pal", {"wss": "4:3"}),
+                                     ("pal", {"videocrypt": "free"}),
+                                     ("pal", {"syster": "premiere-fa"}),
                                      ("d2mac-fm", {})])
 def test_unported_options_raise(mode, kw):
     with pytest.raises(NotImplementedError):

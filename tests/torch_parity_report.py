@@ -15,8 +15,10 @@ and contribution against hacktv_tpu's device coder and nicam_add, the SECAM
 chroma program against the JAX one (and the largest carrier phase the
 test card and the field-identification lines give), and each encoder
 configuration's first one-frame blocks (SNR, max error, differing
-samples): two for the PAL and NTSC chains, three (the SECAM IIR carry
-crossed twice) for SECAM, AM, A2, FM video and the RF tail."""
+samples): two for the PAL and NTSC chains and the VBI services, three
+(the SECAM IIR carry crossed twice) for SECAM, AM, A2, FM video, the RF
+tail and SiS; and each VBI service's render bound with a seeded render
+against the JAX package's."""
 
 from __future__ import annotations
 
@@ -241,6 +243,15 @@ def secam() -> None:
           f"{phase_max:.3f} rad")
 
 
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+DEMO_TTI = os.path.join(DATA, "demo.tti")
+RAW_TT = "raw:" + os.path.join(DATA, "raw_tt_packets.bin")
+
+
+def _tt_clock():
+    return 1_200_000_000
+
+
 def encoders() -> None:
     for mode, rate, kw in (
             ("m", 13_500_000, dict(vfilter=True)), ("m", 13_500_000, {}),
@@ -263,7 +274,27 @@ def encoders() -> None:
             ("apollo-fsc", 14_000_000, {}), ("cbs405", 9_000_000, {}),
             ("i", 16_000_000, dict(pixel_rate=14_750_000)),
             ("pal", 8_000_000, dict(pixel_rate=16_000_000)),
-            ("pal-fm", 20_250_000, dict(pixel_rate=13_500_000))):
+            ("pal-fm", 20_250_000, dict(pixel_rate=13_500_000)),
+            ("pal", 16_000_000, dict(wss="auto")),
+            ("pal", 16_000_000, dict(vits=True)),
+            ("ntsc", 13_500_000, dict(vits=True)),
+            ("pal", 13_513_500, dict(vits=True)),
+            ("m", 13_513_500, dict(vits=True)),
+            ("i", 16_000_000, dict(vitc=True)),
+            ("m", 13_500_000, dict(vitc=True)),
+            ("pal", 16_000_000, dict(acp=True)),
+            ("ntsc", 13_500_000, dict(acp=True, cc608=True)),
+            ("pal", 16_000_000, dict(teletext=DEMO_TTI,
+                                     teletext_clock=_tt_clock)),
+            ("pal", 16_000_000, dict(teletext=RAW_TT)),
+            ("i", 16_000_000, dict(sis="dcsis")),
+            ("i", 16_000_000, dict(vfilter=True, teletext=DEMO_TTI,
+                                   teletext_clock=_tt_clock, wss="16:9",
+                                   vits=True, vitc=True)),
+            ("pal", 16_000_000, dict(vits=True, wss="auto", acp=True,
+                                     vitc=True, cc608=True, sis="dcsis",
+                                     teletext=DEMO_TTI,
+                                     teletext_clock=_tt_clock))):
         probe = TEncoder(mode, rate, pixel_rate=kw.get("pixel_rate", 0),
                          device="cpu")
         src = NoiseSource(probe.params.active_width, probe.conf.active_lines,
@@ -271,15 +302,41 @@ def encoders() -> None:
         j = JEncoder(mode, rate, source=src, **kw)
         t = TEncoder(mode, rate, source=src, device="cpu", **kw)
         nb = 3 if mode in ("secam", "l", "d", "a") or mode.endswith(
-            "-fm") or {"a2stereo", "offset"} & set(kw) else 2
+            "-fm") or {"a2stereo", "offset", "sis"} & set(kw) else 2
         if mode in ("apollo-fsc", "cbs405"):
             nb = 4                          # every colour field
         for b in range(nb):
             snr, maxerr, ndiff = tc.error_report(t.encode_block(b),
                                                  j.encode_block(b))
-            print(f"Encoder({mode!r}, {rate}, {kw}) block {b}: SNR "
+            shown = {k: (os.path.basename(v) if k == "teletext" else v)
+                     for k, v in kw.items() if k != "teletext_clock"}
+            print(f"Encoder({mode!r}, {rate}, {shown}) block {b}: SNR "
                   f"{snr:.1f} dB, max error {maxerr}, {ndiff} values "
                   f"differ")
+
+
+def vbi() -> None:
+    """Each service's render bound: the largest partial sum of bits @
+    basis against 2^24 (f32 exact), and a seeded render against the JAX
+    package's."""
+    from hacktv_tpu.services import vbidata as jvbi
+    from hacktv_tpu_torch.services import vbidata as tvbi
+    for mode, rate, kw in (("i", 16_000_000, dict(
+            teletext=DEMO_TTI, wss="16:9", vitc=True, cc608=True,
+            sis="dcsis")), ("m", 13_500_000, dict(vitc=True, cc608=True))):
+        t = TEncoder(mode, rate, device="cpu", **kw)
+        for svc in t.services:
+            basis = getattr(svc, "basis", None)
+            if basis is None:
+                continue
+            bits = (np.random.default_rng(1).random(
+                (64, basis.shape[0])) < 0.5).astype(np.float32)
+            got = tvbi.render(torch.as_tensor(bits), torch.as_tensor(basis))
+            ref = np.asarray(jvbi.render(jnp.asarray(bits), basis))
+            print(f"{type(svc).__name__} ({mode}, {rate}): largest partial "
+                  f"sum {tvbi.sum_bound(basis):.0f} of 2^24, "
+                  f"{int(np.count_nonzero(got.numpy() != ref))} of "
+                  f"{ref.size} render values differ")
 
 
 if __name__ == "__main__":
@@ -296,4 +353,5 @@ if __name__ == "__main__":
     fm_chain()
     nicam()
     secam()
+    vbi()
     encoders()
