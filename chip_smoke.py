@@ -21,9 +21,14 @@ pal-i-teletext-vsb (Encoder("i", 16 MS/s, --filter, teletext from
 tests/data/demo.tti, WSS 16:9, VITS, VITC): the UK terrestrial signal),
 m-cc608-acp (Encoder("m", 13.5 MS/s, CEA-608, ACP, VITS, VITC): NTSC-M
 with line-21 captions and copy protection) and i-sis (Encoder("i", 16
-MS/s, sis="dcsis"): PAL-I with NICAM sound-in-syncs).  Teletext's clock
-is fixed, and caption pairs are queued with write_pair before the first
-block.
+MS/s, sis="dcsis"): PAL-I with NICAM sound-in-syncs), i-videocrypt-vsb
+(Encoder("i", 16 MS/s, --filter, videocrypt="free"): PAL-I scrambled for
+Sky's Videocrypt decoders), l-syster-vsb (Encoder("l", 16 MS/s, --filter,
+syster="premiere-fa", systeraudio=True): Canal+ France, Nagravision
+Syster on SECAM-L with the sound inverted) and ntsc-bs
+(Encoder("ntsc-bs", 16 MS/s): Japan's BS satellite, FM video with DANCE
+digital sound).  Teletext's clock is fixed, and caption pairs are queued
+with write_pair before the first block.
 
 Phases, one line each (any failure exits non-zero before the result):
 
@@ -58,13 +63,21 @@ Phases, one line each (any failure exits non-zero before the result):
      card against the CPU (byte-equal required) and its card time;
      teletext's render against its bound, and with TF32 on (byte-equal
      to the CPU required);
-  8. end to end: each path at 64 frames per block, seeded noise for
+  8. scramble: each scrambler of the scrambled paths and of Videocrypt
+     S, Syster with cut-and-rotate and Discret 11 at the 64-frame
+     block's shapes: its host block_arrays per block, its apply on the
+     card against the CPU (byte-equal required) and its card time; and
+     dance: ntsc-bs's host DANCE coder (frames, signs: dance_block) per
+     block and its two-part pulse product (nicam_add) on the card
+     against the CPU, with TF32 on (byte-equal required), and its card
+     time;
+  9. end to end: each path at 64 frames per block, seeded noise for
      sound: 2 warm-up and 8 timed blocks (the host's enqueue time and the
      block time to the card's end; for FM video on the host, to the end
      of its collect_block, where the FM recurrence runs), with every
      kernel's launch count set to 0 just before a path and read just
      after;
-  9. the card against the port's CPU path, one-frame blocks 0-3 of each
+  10. the card against the port's CPU path, one-frame blocks 0-3 of each
      path and of SECAM composite, SECAM-L (device and host-exact
      chroma), 405-line system A (AM sound), NTSC-M with A2 at 13.5135
      MS/s, SECAM-FM, NTSC-FM with its 71-tap pre-emphasis at 20.25 MS/s,
@@ -75,12 +88,15 @@ Phases, one line each (any failure exits non-zero before the result):
      PAL-FM at 20.25 MS/s from 13.5 MS/s pixels, and the services one at
      a time (WSS auto, VITS on PAL and NTSC and at 13.5135 MS/s, where
      the carrier comes from the angle addition, VITC on PAL-I and NTSC-M,
-     ACP on PAL and NTSC, raw teletext packets, SiS with the VSB filter):
-     byte-identical required;
- 10. the command line, 4 frames each of -m i, -m i --filter with
+     ACP on PAL and NTSC, raw teletext packets, SiS with the VSB filter),
+     and the scramblers (Videocrypt conditional, I and II together,
+     Videocrypt S, Syster, cut-and-rotate alone and with Syster,
+     Discret 11 on SECAM-L, SiS with the inverted sound): byte-identical
+     required;
+ 11. the command line, 4 frames each of -m i, -m i --filter with
      teletext, WSS, VITS and VITC, -m pal-fm --filter, -m pal --s-video
-     --filter and -m i --pixelrate 14750000 to files through the native
-     sink.
+     --filter, -m i --pixelrate 14750000, -m i --filter --videocrypt
+     free and -m ntsc-bs to files through the native sink.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -127,7 +143,11 @@ PATHS = {"m-vsb": ("m", 13_500_000, True, {}),
              "vits": True, "vitc": True}),
          "m-cc608-acp": ("m", 13_500_000, False, {
              "cc608": True, "acp": True, "vits": True, "vitc": True}),
-         "i-sis": ("i", 16_000_000, False, {"sis": "dcsis"})}
+         "i-sis": ("i", 16_000_000, False, {"sis": "dcsis"}),
+         "i-videocrypt-vsb": ("i", 16_000_000, True, {"videocrypt": "free"}),
+         "l-syster-vsb": ("l", 16_000_000, True, {
+             "syster": "premiere-fa", "systeraudio": True}),
+         "ntsc-bs": ("ntsc-bs", 16_000_000, False, {})}
 # the card against the CPU: the paths and these
 CPU_PATHS = {**PATHS,
              "secam": ("secam", 16_000_000, False, {}),
@@ -165,7 +185,25 @@ CPU_PATHS = {**PATHS,
              "ntsc-acp": ("ntsc", 13_500_000, False, {"acp": True}),
              "pal-teletext-raw": ("pal", 16_000_000, False, {
                  "teletext": "raw:tests/data/raw_tt_packets.bin"}),
-             "i-sis-vsb": ("i", 16_000_000, True, {"sis": "dcsis"})}
+             "i-sis-vsb": ("i", 16_000_000, True, {"sis": "dcsis"}),
+             "pal-videocrypt-conditional": ("pal", 16_000_000, False, {
+                 "videocrypt": "conditional"}),
+             "pal-videocrypt-1-2": ("pal", 16_000_000, False, {
+                 "videocrypt": "free", "videocrypt2": "free"}),
+             "i-videocrypts": ("i", 16_000_000, False,
+                               {"videocrypts": "free"}),
+             "pal-syster": ("pal", 16_000_000, False,
+                            {"syster": "premiere-fa"}),
+             "pal-systercnr": ("pal", 16_000_000, False,
+                               {"systercnr": "premiere-fa"}),
+             "pal-syster-systercnr": ("pal", 16_000_000, False, {
+                 "syster": "premiere-fa", "systercnr": "premiere-fa"}),
+             "l-d11": ("l", 16_000_000, False, {"d11": "premiere-fa"}),
+             "i-sis-systeraudio": ("i", 16_000_000, False, {
+                 "sis": "dcsis", "systeraudio": True})}
+# the scramble phase: the scrambled e2e paths and these
+SCRAMBLE_PATHS = ("i-videocrypt-vsb", "l-syster-vsb", "i-videocrypts",
+                  "pal-syster-systercnr", "l-d11")
 # one-frame blocks 0-3: SECAM's carry three times, every field of the
 # field-sequential modes, the second block of each
 CPU_BLOCKS = 4
@@ -664,6 +702,103 @@ def render_phase(svc, packed, n: int, W: int) -> None:
         fail("vbi render: TF32 changed the card's result")
 
 
+def scramble_phase() -> None:
+    """The scramblers at the 64-frame block's shapes, on the encoders of
+    SCRAMBLE_PATHS (the card's and the CPU's, their host state advanced
+    together): each one's host block_arrays per block (median of blocks
+    1-3), its apply on the card (CUDA events) against the same call on
+    the CPU on a seeded block with the service's halo: byte-equal
+    required."""
+    from hacktv_tpu_torch.services import arrays_to_device
+    for path in SCRAMBLE_PATHS:
+        spec = CPU_PATHS[path]
+        g = build(spec, "cuda", noise_source(spec), FPB)
+        c = build(spec, "cpu", noise_source(spec), FPB)
+        nl = FPB * g.params.lines
+        n = nl + 1 + g.halo_after
+        W = g.params.width
+        host_s = {type(svc).__name__: [] for svc in g.services}
+        for b in range(1, 4):
+            cg, cc = np.zeros(n, bool), np.zeros(n, bool)
+            arrs = []
+            for sg, sc in zip(g.services, c.services):
+                t = time.perf_counter()
+                ag = sg.block_arrays(b * nl - 1, n, cg)
+                host_s[type(sg).__name__].append(time.perf_counter() - t)
+                arrs.append((ag, sc.block_arrays(b * nl - 1, n, cc)))
+        video = np.random.default_rng(41).integers(
+            -12000, 24000, (n, W)).astype(np.float32)
+        out_g, out_c = torch.as_tensor(video, device="cuda"), \
+            torch.as_tensor(video)
+        for sg, sc, (ag, ac) in zip(g.services, c.services, arrs):
+            name = type(sg).__name__
+            dg = arrays_to_device(ag, "cuda")
+            rg = sg.apply(out_g, dg)
+            rc = sc.apply(out_c, arrays_to_device(ac, "cpu"))
+            diff = int(np.count_nonzero(rg.cpu().numpy() != rc.numpy()))
+            ms = cuda_ms(lambda: sg.apply(out_g, dg), 5)
+            phase("scramble", path=path, service=name, lines=n, width=W,
+                  block_arrays_ms=f"{statistics.median(host_s[name]) * 1e3:.3f}",
+                  apply_ms=f"{ms:.3f}", card_vs_cpu_differing=diff,
+                  card=json.dumps(CARD["smi"]))
+            if diff:
+                fail(f"scramble {path} {name}: the card differs from the CPU")
+            out_g, out_c = rg, rc
+        del g, c, out_g, out_c, rg, rc
+        torch.cuda.empty_cache()
+
+
+def dance_phase() -> None:
+    """ntsc-bs's DANCE at the 64-frame block's shapes: the host coder
+    (dance_block: the PCM calls, pre-emphasis, frames and differential
+    signs) per block (median of blocks 0-3), and the two-part pulse
+    product (nicam_add of those signs) on the card against the CPU, with
+    TF32 off and on: byte-equal required; its card time (CUDA events)."""
+    from hacktv_tpu_torch.audio import synth
+    spec = PATHS["ntsc-bs"]
+    encs = {d: build(spec, d, noise_source(spec), FPB)
+            for d in ("cuda", "cpu")}
+    e = encs["cpu"]
+    nl = FPB * e.params.lines
+    host = []
+    for b in range(4):
+        t = time.perf_counter()
+        dc = e.audio.dance_block(b * nl, nl, e.dance_statics)
+        host.append(time.perf_counter() - t)
+    res, ms = {}, None
+    was = torch.backends.cuda.matmul.allow_tf32
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            for d, enc in encs.items():
+                zero = torch.zeros((nl, enc.params.width), device=d)
+                args = (enc.dance_statics, zero, zero,
+                        torch.as_tensor(dc["signs_i"], device=d),
+                        torch.as_tensor(dc["signs_q"], device=d), dc["offq"],
+                        dc["offr"], torch.as_tensor(dc["cc_off"], device=d),
+                        (3 * nl) % enc.dance_statics.period)
+                res[(d, tf32)] = [t.cpu() for t in synth.nicam_add(*args)]
+                if d == "cuda" and not tf32:
+                    ms = cuda_ms(lambda: synth.nicam_add(*args), 5)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = was
+    diff = {f"tf32_{'on' if tf32 else 'off'}": sum(
+        int((a != b).sum()) for a, b in zip(res[("cuda", tf32)],
+                                            res[("cpu", tf32)]))
+        for tf32 in (False, True)}
+    st = e.dance_statics
+    phase("dance", lines=nl, width=e.params.width, period=st.period,
+          nslot=st.nslot, max_tap=int(st.pulse.abs().max()),
+          dance_block_ms=f"{statistics.median(host) * 1e3:.1f}",
+          nicam_add_ms=f"{ms:.3f}",
+          card_vs_cpu_differing=json.dumps(diff).replace(" ", ""),
+          card=json.dumps(CARD["smi"]))
+    if any(diff.values()):
+        fail("dance: the card's pulse product differs from the CPU's")
+    del encs, res
+    torch.cuda.empty_cache()
+
+
 def e2e_phase(sf, path: str, profile_dir) -> dict:
     mode, rate, vfilter, kw = PATHS[path]
     enc = build(PATHS[path], "cuda", noise_source(PATHS[path]), FPB)
@@ -737,11 +872,21 @@ def fm_host_phase(enc, out) -> None:
     from hacktv_tpu_torch import runtime
     c = enc.audio.fm_mono
     n = FPB * enc.params.lines * enc.out_params.width
-    t = time.perf_counter()
-    feed = enc.audio.fm_exact_stream(c, 0, n)
-    feed_s = time.perf_counter() - t
-    fx = runtime.FmCarrierExact(c.frequency, c.deviation,
-                                enc.params.sample_rate, c.level_int)
+    if c is None:
+        # no FM sound carrier (ntsc-bs): time the video's recurrence on a
+        # block of its output's I channel
+        conf = enc.conf
+        feed = np.ascontiguousarray(out[..., 0].cpu().numpy()).reshape(-1)
+        feed_s = 0.0
+        fx = runtime.FmCarrierExact(
+            0.0, conf.fm_deviation, enc.params.sample_rate,
+            int(round(32767 * conf.fm_level * conf.level)))
+    else:
+        t = time.perf_counter()
+        feed = enc.audio.fm_exact_stream(c, 0, n)
+        feed_s = time.perf_counter() - t
+        fx = runtime.FmCarrierExact(c.frequency, c.deviation,
+                                    enc.params.sample_rate, c.level_int)
     t = time.perf_counter()
     fx.process(feed, 0)
     carrier_s = time.perf_counter() - t
@@ -803,8 +948,9 @@ def cpu_compare_phase() -> None:
 def cli_phase() -> None:
     """Four frames from the command line to a file through the native
     sink: PAL-I, PAL-FM with the pre-emphasis filter, PAL S-Video with the
-    low-pass, PAL-I from 14.75 MS/s pixels and PAL-I with teletext, WSS,
-    VITS and VITC through the VSB filter (the teletext clock fixed)."""
+    low-pass, PAL-I from 14.75 MS/s pixels, PAL-I with teletext, WSS,
+    VITS and VITC through the VSB filter (the teletext clock fixed),
+    PAL-I with Videocrypt through the VSB filter, and ntsc-bs."""
     demo = os.path.join(HERE, "tests", "data", "demo.tti")
     env = {**os.environ, "HACKTV_TPU_TELETEXT_TIME": str(TELETEXT_TIME)}
     with tempfile.TemporaryDirectory() as tmp:
@@ -817,7 +963,10 @@ def cli_phase() -> None:
                                     (["-m", "pal", "--s-video", "--filter"],
                                      640_000),
                                     (["-m", "i", "--pixelrate", "14750000"],
-                                     640_000)):
+                                     640_000),
+                                    (["-m", "i", "--filter", "--videocrypt",
+                                      "free"], 640_000),
+                                    (["-m", "ntsc-bs"], 533_925)):
             out = os.path.join(tmp, "out.bin")
             t = time.perf_counter()
             r = subprocess.run(
@@ -887,6 +1036,8 @@ def main() -> int:
     secam_phase(Encoder)
     resample_phase()
     vbi_phase()
+    scramble_phase()
+    dance_phase()
     launches = {}
     for path in PATHS:
         launches[path] = e2e_phase(sf, path, args.profile)

@@ -1,16 +1,19 @@
 """Host-side audio pipeline: the 32 kHz audio-rate bookkeeping of the FM
-carriers (mono and the A2 second carrier), the AM carrier and NICAM-728.
+carriers (mono and the A2 second carrier), the AM carrier, NICAM-728 and
+DANCE (the BS digital sound of `ntsc-bs`), with the Syster audio
+inversion (`systeraudio`) of the source's sound.
 
-Port of hacktv_tpu/audio/chain.py without DANCE and the Syster audio
-inversion.  The reference processes audio one output sample at a time
-inside the video loop (src/video.c:3261-3450).  Here the host fetches the
-volume-scaled PCM window of each block and computes the per-class window
-offsets and carrier tables (numpy, exact integer arithmetic on the
-absolute output-sample index).  The FM mono carrier's channel mix, limiter
+Port of hacktv_tpu/audio/chain.py.  The reference processes audio one
+output sample at a time inside the video loop (src/video.c:3261-3450).
+Here the host fetches the volume-scaled PCM window of each block and
+computes the per-class window offsets and carrier tables (numpy, exact
+integer arithmetic on the absolute output-sample index).  The FM mono carrier's channel mix, limiter
 and phase prefix sums, and the NICAM frame encoder, run on the device
 (audio/synth.py, audio/nicam_dev.py); the A2 carriers' held values (two
 limiters and the 0.95 scale), the AM gain segments and the A2 pilot's
-phase bases are computed here, as the JAX package does.  DANCE raises.
+phase bases are computed here, as the JAX package does; so are DANCE's
+frames and differential signs (audio/dance.py), which go to the device
+as a sign stream for synth.nicam_add.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config.standards import Modulation, Preemph, VidConfig
+from . import dance as dance_mod
 from . import nicam as nicam_mod
 from .limiter import Limiter
 from .preemph import FLAT_TAPS, taps_for
@@ -93,16 +97,20 @@ class AudioChain:
     """Per-block audio computation for one video mode."""
 
     def __init__(self, conf: VidConfig, sample_rate: int, width: int,
-                 source, a2stereo: bool = False):
+                 source, systeraudio: bool = False,
+                 a2stereo: bool = False):
         self.conf = conf
         self.S = int(sample_rate)
         self.A = AUDIO_RATE
         self.W = width
         self.source = source
         self.volume_int = int(conf.volume * 256 + 0.5)
-
-        if conf.dance_level > 0 and conf.dance_carrier != 0:
-            raise NotImplementedError("DANCE is not ported yet")
+        # Syster audio spectrum inversion runs on the raw source audio
+        # before volume scaling (src/video.c:3280-3295)
+        self.inverter = None
+        if systeraudio:
+            from ..services.syster import SysterAudioInverter
+            self.inverter = SysterAudioInverter()
 
         slevel = 1.0 if conf.modulation == Modulation.FM else conf.level
 
@@ -169,6 +177,23 @@ class AudioChain:
             g = math.gcd(fi, self.S)
             self.nicam["num"], self.nicam["den"] = fi // g, self.S // g
 
+        self.dance = None
+        if conf.dance_level > 0 and conf.dance_carrier != 0:
+            self.dance = {
+                "timing": nicam_mod.SymbolTiming.create(
+                    self.S, dance_mod.DANCE_SYMBOL_RATE),
+                "taps": nicam_mod.mod_taps(
+                    self.S, conf.dance_beta, conf.dance_level * slevel,
+                    dance_mod.DANCE_SYMBOL_RATE),
+            }
+            # dance_mod_init takes the carrier as unsigned int -> the
+            # 63e6/11 Hz BS carrier truncates (src/video.c:4538,964)
+            fi = int(conf.dance_carrier)
+            g = math.gcd(fi, self.S)
+            self.dance["num"], self.dance["den"] = fi // g, self.S // g
+            # differential-symbol anchor: (frame index, dsym entering it)
+            self._dance_dsym_anchor: tuple[int, int] = (0, 0)
+
         # Max segments a line can span: audio events in W samples + hold
         self.nseg = _ceil_div(width * self.A, self.S) + 2
 
@@ -187,7 +212,10 @@ class AudioChain:
         out = np.zeros((count, 2), dtype=np.int64)
         lo = max(start, 0)
         if lo < start + count:
-            raw = self.source.read_audio(lo, start + count - lo)
+            if self.inverter is not None:
+                raw = self._inverted(lo, start + count - lo)
+            else:
+                raw = self.source.read_audio(lo, start + count - lo)
             if self.volume_int == 256 and raw.dtype == np.int16:
                 # (v*256 + 128) >> 8 == v for any int16 v: skip the
                 # scale/clip pass at the default volume
@@ -196,6 +224,35 @@ class AudioChain:
                 v = (raw.astype(np.int64) * self.volume_int + 128) >> 8
                 out[lo - start:] = np.clip(v, -32768, 32767)
         return out
+
+    def _inverted(self, lo: int, n: int) -> np.ndarray:
+        """Spectrum-inverted pairs [lo, lo+n) through a rolling span
+        cache: the FM and NICAM feeds request overlapping ranges each
+        block, and the 771-tap inversion is index-pure, so only the
+        uncovered head/tail spans are computed."""
+        hi = lo + n
+        c = getattr(self, "_inv_cache", None)
+        if c is None or lo > c[0] + len(c[1]) or hi < c[0]:
+            arr = self.inverter.process(self.source.read_audio, lo, n)
+            self._inv_cache = [lo, arr]
+            return arr
+        base, arr = c
+        if lo < base:
+            head = self.inverter.process(self.source.read_audio, lo,
+                                         base - lo)
+            arr = np.concatenate([head, arr])
+            base = lo
+        end = base + len(arr)
+        if hi > end:
+            tail = self.inverter.process(self.source.read_audio, end,
+                                         hi - end)
+            arr = np.concatenate([arr, tail])
+        drop = lo - base - 8192
+        if drop > 0:
+            arr = arr[drop:]
+            base += drop
+        self._inv_cache = [base, arr]
+        return arr[lo - base:lo - base + n]
 
     # -- compact FM block (device-side segment assembly) -----------------
     def fm_win_config(self, carrier: FMCarrier, nlines: int, device="cuda"):
@@ -694,6 +751,100 @@ class AudioChain:
             out["c" + tag] = np.cos(ang).astype(np.float32)
             out["s" + tag] = np.sin(ang).astype(np.float32)
         return out
+
+
+    # -- DANCE block ----------------------------------------------------
+    def dance_block(self, k0: int, nlines: int, st) -> dict:
+        """Per-block arrays of the DANCE subcarrier for lines [k0,
+        k0+nlines), in the window scheme of NICAM's synth.nicam_add: the
+        differential sign stream from the host coder, zero-prepadded by
+        one period so that pre-stream symbols read 0, and the per-class
+        window offsets."""
+        P, S = st.period, st.nslot
+        spp = st.syms_per_period
+        G = -(-nlines // P)
+        fs_ = dance_mod.DANCE_FRAME_SYMS
+
+        # first line of each block-local class c is stream line k0 + c;
+        # class rows advance by exactly spp symbols per period
+        ks = np.arange(k0, k0 + P, dtype=np.int64)
+        cls = ks % P
+        kf0 = st.kf[cls] + (ks - cls) // P * spp   # may be < 0 at start
+        sym_lo = max(0, int(kf0.min()))
+        sym_hi = int(kf0.max()) + (G - 1) * spp + S
+        f0 = sym_lo // fs_
+        f1 = (sym_hi - 1) // fs_ + 1
+        signs = self._dance_signs(f0, f1)          # [nframes*syms, 2]
+
+        off0 = (kf0 - f0 * fs_ + spp).astype(np.int64)
+        L = (G + 4) * spp
+        assert off0.min() >= 0 and off0.max() + (G - 1) * spp + S <= L
+        buf = np.zeros((2, L), dtype=np.float32)
+        m = min(len(signs), L - spp)
+        buf[:, spp:spp + m] = signs[:m].T
+
+        n_line = np.arange(k0, k0 + nlines, dtype=np.int64) * self.W
+        return dict(signs_i=buf[0], signs_q=buf[1],
+                    offq=(off0 // spp).astype(np.int32),
+                    offr=(off0 % spp).astype(np.int32),
+                    cc_off=(n_line % self.dance["den"]).astype(np.int32))
+
+    def _dance_signs(self, f0: int, f1: int) -> np.ndarray:
+        """Differential I/Q signs of the symbols of frames [f0, f1).  The
+        differential state chains frame to frame through an anchor
+        (frame index, dsym entering it), left a few frames behind f1: the
+        next block's first pulse reaches back across the boundary."""
+        fa, da = self._dance_dsym_anchor
+        if fa > f0:
+            fa, da = 0, 0   # seek backwards: recompute from stream start
+        frames = self._dance_frames(fa, f1)
+        pairs = dance_mod.frame_symbols(frames).reshape(-1)
+        signs, _ = nicam_mod.differential_encode(pairs, da)
+        last = f1 - 3
+        if last > fa:
+            nsym = dance_mod.DANCE_FRAME_SYMS
+            steps = nicam_mod.STEP[pairs[: (last - fa) * nsym]]
+            self._dance_dsym_anchor = (last, int((da + steps.sum()) & 3))
+        return signs[(f0 - fa) * dance_mod.DANCE_FRAME_SYMS:]
+
+    def _dance_audio_block(self, f: int) -> int:
+        """Audio 32-pair block held in the modulator when frame f is
+        encoded: the frame encode fires at output sample
+        timing.start(1024 f) inside dance_mod_output for that line,
+        AFTER the whole line's audio-rate events ran
+        (src/video.c:3261-3443 order); the newest complete block wins.
+        Returns the block index (pairs [32j, 32(j+1))), or -1 for the
+        initial silence."""
+        n_f = int(self.dance["timing"].start(f * dance_mod.DANCE_FRAME_SYMS))
+        line_end = (n_f // self.W + 1) * self.W
+        pairs_read = int(self.held_index(line_end - 1)) + 1
+        return pairs_read // dance_mod.DANCE_A_AUDIO_LEN - 1
+
+    def _dance_frames(self, f0: int, f1: int) -> np.ndarray:
+        """DANCE frames [f0, f1).  Frame f's range codes come from the
+        audio block visible at its own encode; its sample payload from
+        the block of frame f-1's encode (double buffering,
+        src/dance.c:229-231,257-261).  The pre-emphasis FIR runs over
+        the concatenated per-call input blocks in call order."""
+        if f1 <= f0:
+            return np.zeros((0, dance_mod.DANCE_FRAME_BYTES), dtype=np.uint8)
+        n = dance_mod.DANCE_A_AUDIO_LEN
+        # calls needed: [f0-1, f1) for the frames, plus 3 earlier calls
+        # (the FIR's 76 samples of history < 3*32) to rebuild its state;
+        # block indices are computable for any call, so no rescan from
+        # the stream start is ever needed
+        c_lo = f0 - 4
+        ncalls = f1 - c_lo
+        pcm_calls = np.zeros((ncalls * n, 2), dtype=np.int64)
+        for ci in range(ncalls):
+            c = c_lo + ci
+            j = self._dance_audio_block(c) if c >= 0 else -1
+            if j >= 0:
+                pcm_calls[ci * n: (ci + 1) * n] = self._pcm(j * n, n)
+        pre = np.stack([dance_mod.pre_emphasis(pcm_calls[:, 0]),
+                        dance_mod.pre_emphasis(pcm_calls[:, 1])],
+                       axis=-1)[3 * n:]
+        return dance_mod.encode_frames(pre, f0)
 
 
 def _ceil_div(a, b):

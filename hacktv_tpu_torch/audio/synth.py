@@ -572,9 +572,33 @@ class NicamStatics:
     nslot: int
     kf: np.ndarray          # i64 [P] first symbol per class (host)
     syms_per_period: int
+    # taps of 2048 and more (DANCE): pulse = PULSE_SPLIT * hi + lo, each
+    # part below 2048 (split_pulse); None where pulse itself is
+    pulse_hi: torch.Tensor | None = None
+    pulse_lo: torch.Tensor | None = None
     # nicam_add's index grids on the device, built at first use
     _cache: dict = field(default_factory=dict, init=False, repr=False,
                          compare=False)
+
+
+#: the scale of split_pulse's high part
+PULSE_SPLIT = 64
+#: taps below this magnitude are exact in every matmul precision torch
+#: may pick for an f32 product (TF32 keeps 11 significant bits)
+EXACT_TAP = 2048
+
+
+def split_pulse(pulse: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Integer pulse taps as PULSE_SPLIT * hi + lo, with hi = round(p /
+    PULSE_SPLIT) and |lo| <= PULSE_SPLIT / 2: both parts below EXACT_TAP,
+    so each product with the {-1, 0, +1} signs is exact in TF32 too.
+    DANCE's taps reach 13 bits (|5,605| for ntsc-bs at 16 MS/s)."""
+    hi = np.round(pulse.astype(np.float64) / PULSE_SPLIT)
+    lo = pulse - PULSE_SPLIT * hi
+    if max(np.abs(hi).max(), np.abs(lo).max()) >= EXACT_TAP:
+        raise ValueError("pulse taps too large for a two-part exact "
+                         "product")
+    return hi.astype(np.float32), lo.astype(np.float32)
 
 
 def make_nicam_statics(taps: np.ndarray, num: int, den: int, width: int,
@@ -590,7 +614,14 @@ def make_nicam_statics(taps: np.ndarray, num: int, den: int, width: int,
     operands are integers (pulse taps) and signs in {-1, 0, +1}, so with
     |tap| < 2048 even TF32's 11 significant bits hold them, every product
     is exact, and every partial sum is an integer far below 2^24 (a
-    sample lies under only a few pulses)."""
+    sample lies under only a few pulses).  NICAM's taps stay below 2048
+    (|1,033| for PAL-I at 16 MS/s).  DANCE's reach 13 bits: their pulse
+    matrix is also kept split in two parts below 2048 (split_pulse), and
+    nicam_add sums two exact products, the high one scaled by 64 (exact:
+    a power of two), every partial sum still an integer below 2^24 (about
+    11 pulses of |5,605| at a sample).  Of the two exact ways, two f32
+    products or one f64 product, this takes the first: the tensor cores'
+    f32 path, and the same arithmetic as NICAM's."""
     ntaps = len(taps)
     span = timing.sps * timing.decimation - timing.dsl
     period = int(np.lcm(span, width) // width)
@@ -621,9 +652,8 @@ def make_nicam_statics(taps: np.ndarray, num: int, den: int, width: int,
             lo = max(0, off)
             hi = min(width, off + ntaps)
             pulse[c, s, lo:hi] = taps[lo - off: hi - off]
-    if np.abs(pulse).max() >= 2048:
-        raise ValueError("NICAM pulse taps need more than 11 significant "
-                         "bits: nicam_add's product would not be exact")
+    split = (split_pulse(pulse) if np.abs(pulse).max() >= EXACT_TAP
+             else None)
 
     # the reference's carrier LUT: round(cos(d*i)*32767) over one full
     # period, pointer wrapping at den (src/common.c:209-226,
@@ -638,7 +668,9 @@ def make_nicam_statics(taps: np.ndarray, num: int, den: int, width: int,
         lut_i=t(lr(np.cos(d * i) * 32767.0).astype(np.int16)),
         lut_q=t(lr(np.sin(d * i) * 32767.0).astype(np.int16)),
         den=den, period=period, nslot=nslot, kf=kf,
-        syms_per_period=syms_per_period)
+        syms_per_period=syms_per_period,
+        pulse_hi=t(split[0]) if split else None,
+        pulse_lo=t(split[1]) if split else None)
 
 
 def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
@@ -667,7 +699,6 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     G = -(-B // P)
     dev = out_i.device
 
-    pulse = torch.roll(st.pulse, -k0_mod, dims=0)
     grid = st._cache.get(("grid", G, L))
     if grid is None:
         g = np.arange(G, dtype=np.int64)[:, None] * spp + np.arange(S)
@@ -680,7 +711,14 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     win = torch.stack([signs_i, signs_q]).reshape(-1)[idx]   # [P, 2, G, S]
     # batched over the line class c: [P, 2G, S] x [P, S, W] -> [P, 2G, W];
     # line b = g*P + c
-    bb = torch.bmm(win.reshape(P, 2 * G, S), pulse)
+    w = win.reshape(P, 2 * G, S)
+    roll = lambda a: torch.roll(a, -k0_mod, dims=0)
+    if st.pulse_hi is None:
+        bb = torch.bmm(w, roll(st.pulse))
+    else:
+        # taps of 2048 and more: two exact products (make_nicam_statics)
+        bb = (torch.bmm(w, roll(st.pulse_hi)) * PULSE_SPLIT
+              + torch.bmm(w, roll(st.pulse_lo)))
     bb = bb.view(P, 2, G, W).permute(1, 2, 0, 3).reshape(2, G * P, W)[:, :B]
 
     # exact reference mix (cint16_mula, src/common.h:69-78): the

@@ -11,7 +11,9 @@ RATE, -l LEVEL, -D DEVIATION, -G GAMMA, --fm-energy-dispersal, -i,
 --raw-bb-file FILE, --raw-bb-blanking N, --raw-bb-white N,
 --secam-field-id, --secam-field-id-lines N, --secam-exact, the VBI
 services --teletext PATH, --wss MODE, --vits, --vitc, --cc608, --acp and
---sis MODE, -t TYPE, -o FILE, --frames N, --seconds S,
+--sis MODE, the scramblers --videocrypt MODE, --videocrypt2 MODE,
+--videocrypts MODE, --syster MODE, --systercnr MODE, --d11 MODE,
+--key-table-1, --key-table-2 and --systeraudio, -t TYPE, -o FILE, --frames N, --seconds S,
 --frames-per-block N, --device {cuda,cpu} and the input `test`.
 HACKTV_TPU_TELETEXT_TIME=<unix seconds> fixes the teletext clock, as for
 hacktv_tpu, so that a run is deterministic.  The output goes through the
@@ -85,6 +87,23 @@ def _build_parser() -> argparse.ArgumentParser:
     a("--acp", action="store_true", help="analogue copy protection")
     a("--sis", default=None, metavar="MODE",
       help="sound-in-syncs (dcsis)")
+    a("--videocrypt", default=None, metavar="MODE",
+      help="Videocrypt I (free, conditional)")
+    a("--videocrypt2", default=None, metavar="MODE",
+      help="Videocrypt II (free)")
+    a("--videocrypts", default=None, metavar="MODE",
+      help="Videocrypt S (free, conditional)")
+    a("--syster", default=None, metavar="MODE",
+      help="Nagravision Syster line shuffle (premiere-fa, ...)")
+    a("--key-table-1", action="store_true",
+      help="Syster: the standard key table")
+    a("--key-table-2", action="store_true",
+      help="Syster: the Canal+ France (Oct 1997) key table")
+    a("--d11", default=None, metavar="MODE", help="Discret 11")
+    a("--systercnr", default=None, metavar="MODE",
+      help="Syster cut-and-rotate, alone or with --syster")
+    a("--systeraudio", action="store_true",
+      help="Syster audio spectrum inversion")
     a("-t", "--type", default="int16",
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
     a("--frames", type=int, default=0,
@@ -144,10 +163,45 @@ def _apply_overrides(conf, args):
 
 def _check_services(args, conf) -> None:
     """The reference's service/mode cross-checks (src/hacktv.c:1184-1437),
-    with hacktv_tpu's messages."""
-    if args.acp and conf.lines not in (525, 625):
-        raise SystemExit("Analogue Copy Protection is only compatible with "
-                         "525 and 625 line modes")
+    with hacktv_tpu's messages, in its order."""
+    if (args.videocrypt or args.videocrypt2) and \
+            conf.colour_mode not in (ColourMode.PAL, ColourMode.MONOCHROME):
+        raise SystemExit("videocrypt requires a PAL mode")
+    if args.a2stereo and conf.mac_mode is not None:
+        raise SystemExit("a2stereo is not available for MAC modes")
+    scramblers = [s for s in (args.videocrypt, args.videocrypt2,
+                              args.videocrypts, args.syster, args.d11)
+                  if s]
+    if args.videocrypt and args.videocrypt2 and not (
+            args.videocrypt == "free" and args.videocrypt2 == "free"):
+        raise SystemExit("Videocrypt I and II cannot be used together "
+                         "except in free-access mode")
+    if len(scramblers) > 1 and not (
+            len(scramblers) == 2 and args.videocrypt and args.videocrypt2):
+        raise SystemExit("Using multiple scrambling modes is not "
+                         "supported")
+    # any 625-line mode or any PAL mode (SECAM-L with Syster is the real
+    # French configuration; src/hacktv.c:1207, 1218, 1236, 1306), and
+    # Discret 11 with SECAM too (src/hacktv.c:1289)
+    ok625_pal = conf.lines == 625 or conf.colour_mode == ColourMode.PAL
+    for flag, name in ((args.videocrypt, "Videocrypt I"),
+                       (args.videocrypt2, "Videocrypt II"),
+                       (args.videocrypts, "Videocrypt S"),
+                       (args.syster, "Nagravision Syster")):
+        if flag and not ok625_pal:
+            raise SystemExit(f"{name} is only compatible with 625 line "
+                             "PAL modes")
+    if args.d11 and not (conf.lines == 625
+                         or conf.colour_mode == ColourMode.SECAM):
+        raise SystemExit("Discret 11 is only compatible with 625 line "
+                         "PAL modes")
+    if args.acp:
+        if conf.lines not in (525, 625):
+            raise SystemExit("Analogue Copy Protection is only compatible "
+                             "with 525 and 625 line modes")
+        if scramblers:
+            raise SystemExit("Analogue Copy Protection cannot be used with "
+                             "video scrambling enabled")
     if args.teletext and conf.lines != 625:
         raise SystemExit("Teletext is only available with 625 line modes")
     if args.wss and conf.lines != 625:
@@ -172,8 +226,6 @@ def main(argv=None) -> int:
     except KeyError as e:
         raise SystemExit(str(e))
     conf = _apply_overrides(conf, args)
-    if args.a2stereo and conf.mac_mode is not None:
-        raise SystemExit("a2stereo is not available for MAC modes")
     sample_rate = int(args.samplerate)
     pixel_rate = int(args.pixelrate)
 
@@ -211,6 +263,12 @@ def main(argv=None) -> int:
                   teletext=args.teletext, teletext_clock=tt_clock,
                   wss=args.wss, vits=args.vits, vitc=args.vitc,
                   cc608=args.cc608, acp=args.acp, sis=args.sis,
+                  videocrypt=args.videocrypt, videocrypt2=args.videocrypt2,
+                  videocrypts=args.videocrypts, syster=args.syster,
+                  systercnr=args.systercnr,
+                  syster_key_table=(1 if args.key_table_1 else
+                                    2 if args.key_table_2 else 0),
+                  d11=args.d11, systeraudio=args.systeraudio,
                   vfilter=args.vfilter, a2stereo=args.a2stereo,
                   offset=int(args.offset), swap_iq=args.swap_iq,
                   passthru=args.passthru, raw_bb_file=args.raw_bb_file,

@@ -29,7 +29,12 @@ the JAX package's service objects: `WSS.basis`, `bits` (its waveform row,
 `bits @ basis`, is rebuilt from them each block, as there); `VITS.r_tpl`,
 `c_tpl`, `cs`; `VITC.basis`; `CC608.basis`, `cri`; `ACP.psync_mask`,
 `pagc_mask`; `Teletext.basis`; `SiS.basis`, `blank_win`,
-`warmup_spill`.
+`warmup_spill`; the scramblers' `Videocrypt.basis`; `VideocryptS.basis`,
+`seq` (the shuffle table); `Syster.basis`, with cut-and-rotate also
+`cols` and `seq`; `SysterCNR.basis`, `cols`, `seq`; `D11.basis`,
+`table`.  DANCE's pulse matrices and carrier LUTs go under
+`dance_statics.` + `pulse`, `lut_i`, `lut_q` (its two-part split of the
+pulse is made again from `pulse` when installed).
 
     arrays = statics_to_numpy(enc)          # {name: np.ndarray}
     statics_from_numpy(other_enc, arrays)   # installs them on its device
@@ -115,6 +120,9 @@ def statics_to_numpy(enc) -> dict:
     for svc in enc.services:
         for f in svc.STATICS:
             out[service_key(svc, f)] = np.asarray(getattr(svc, f))
+    if enc.dance_statics is not None:
+        for f in NICAM_FIELDS:
+            out["dance_statics." + f] = host(getattr(enc.dance_statics, f))
     return out
 
 
@@ -200,6 +208,16 @@ def statics_from_numpy(enc, arrays: dict) -> None:
             else:
                 setattr(svc, f, np.array(a, dtype=getattr(svc, f).dtype))
         svc.upload()
+    if enc.dance_statics is not None:
+        from .audio.synth import EXACT_TAP, split_pulse
+        pulse = np.asarray(arrays["dance_statics.pulse"], np.float32)
+        split = (split_pulse(pulse) if np.abs(pulse).max() >= EXACT_TAP
+                 else (None, None))
+        enc.dance_statics = dataclasses.replace(
+            enc.dance_statics,
+            **{f: t(arrays["dance_statics." + f]) for f in NICAM_FIELDS},
+            pulse_hi=None if split[0] is None else t(split[0]),
+            pulse_lo=None if split[1] is None else t(split[1]))
     if "pulse" in arrays:
         enc.nicam_statics = dataclasses.replace(
             enc.nicam_statics, **{f: t(arrays[f]) for f in NICAM_FIELDS})

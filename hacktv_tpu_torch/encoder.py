@@ -7,18 +7,21 @@ NBTV, S-Video) with the video filter, FM mono and A2 stereo sound, AM
 sound and NICAM-728 (PAL-I, the flagship chain, PAL-B/G, SECAM-L, D/K,
 NTSC-M + VSB `--filter`, the 405-line modes, composite with the low-pass
 `--filter`), FM video (the satellite modes `pal-fm`, `ntsc-fm`,
-`secam-fm`), the pixel-rate resampler (`pixel_rate`), and the RF tail
-every mode shares: swap-IQ, the frequency offset and the passthru
-stream; a raw baseband file may replace the raster.  A block of
+`secam-fm`, and `ntsc-bs` with DANCE digital sound), the VBI services
+and the line scramblers (Videocrypt I/II/S, Syster with and without
+cut-and-rotate, Discret 11, the Syster audio inversion), the pixel-rate
+resampler (`pixel_rate`), and the RF tail every mode shares: swap-IQ,
+the frequency offset and the passthru stream; a raw baseband file may
+replace the raster.  A block of
 `frames_per_block` whole frames, plus one halo line each side for filter
 continuity, is synthesised as a sequence of tensor ops on one device:
 
     raster (video/raster.py) -> SECAM chroma and render (video/secam.py)
-    -> resampler (ops/resampler.py)
+    -> services and scramblers (services/) -> resampler (ops/resampler.py)
     -> stream FIR (ops/stream_fir.py, the CUDA kernel on a card) -> FM
     and A2 sound carriers, AM sound (audio/synth.py) -> NICAM
-    (audio/nicam_dev.py, audio/synth.py) -> FM video, swap-IQ, offset
-    (rf/ops.py) -> int16 (+ passthru)
+    (audio/nicam_dev.py, audio/synth.py) -> DANCE (audio/synth.py) -> FM
+    video, swap-IQ, offset (rf/ops.py) -> int16 (+ passthru)
 
 FM video runs the reference's serial int32 recurrence on the host
 (runtime.FmCarrierExact, in `collect_block`) unless swap-IQ, the offset
@@ -31,8 +34,9 @@ The stream-line counter `k` is the only state: k=0 is the first rendered
 line, (frame 1, line 1), with zero filter history at the stream start.
 The FM phase anchor, the FM-video phase, the NICAM differential state
 and the SECAM IIR state are device scalars (the host-exact carriers and
-IIR host state) chained block to block, so blocks must be encoded in
-order.
+IIR host state) chained block to block, and the scramblers' PRBS state
+and DANCE's differential state live on the host, so blocks must be
+encoded in order.
 
 Metadata, line tables, taps and the audio window bookkeeping stay host
 numpy.  Options that are not ported yet raise NotImplementedError.
@@ -64,7 +68,10 @@ from .services import arrays_to_device
 from .services.acp import ACP
 from .services.cc608 import CC608
 from .services.sis import SiS
+from .services.syster import D11, Syster, SysterCNR
 from .services.teletext import Teletext
+from .services.videocrypt import Videocrypt
+from .services.videocrypts import VideocryptS
 from .services.vitc import VITC
 from .services.vits import VITS
 from .services.wss import WSS
@@ -75,6 +82,11 @@ from .video.params import VideoParams
 _INDEX_KEYS = ("base", "nxt", "prv", "vy", "al", "ar", "lut_row", "fsc",
                "fscf")
 _FLOAT_KEYS = ("burst", "vswitch", "cos0", "sin0")
+# lines each service holds in the reference's output ring
+# (src/video.c:4215-4359): the scramblers delay by up to a field
+_SVC_NLINES = {"VITS": 1, "WSS": 1, "Videocrypt": 2, "VideocryptS": 126,
+               "Syster": 345, "SysterCNR": 2, "D11": 2, "ACP": 1, "VITC": 1,
+               "CC608": 1, "SiS": 1, "Teletext": 1}
 
 
 def resolve_device(device) -> torch.device:
@@ -98,7 +110,13 @@ class Encoder:
                  secam_exact: bool | None = None, wss: str | None = None,
                  teletext: str | None = None, vits: bool = False,
                  vitc: bool = False, cc608: bool = False, acp: bool = False,
-                 sis: str | None = None, teletext_clock=None, **unported):
+                 sis: str | None = None, teletext_clock=None,
+                 videocrypt: str | None = None,
+                 videocrypt2: str | None = None,
+                 videocrypts: str | None = None, syster: str | None = None,
+                 systercnr: str | None = None, syster_key_table: int = 0,
+                 d11: str | None = None, systeraudio: bool = False,
+                 **unported):
         for name, value in unported.items():
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
@@ -175,8 +193,8 @@ class Encoder:
             self.vf_taps = (torch.as_tensor(op.vfilter_taps), None)
 
         # VBI data services, in the reference's registration order
-        # (src/video.c:4215-4359): vits, wss, acp, vitc, cc608, sis,
-        # teletext
+        # (src/video.c:4215-4359): vits, wss, the scramblers, acp, vitc,
+        # cc608, sis, teletext.  The shared claimed mask depends on it.
         self.services = []
         dev = self.device
         if vits:
@@ -185,6 +203,21 @@ class Encoder:
                 fused_mix=self.statics.carrier_rows is not None, device=dev))
         if wss:
             self.services.append(WSS(p, wss, device=dev))
+        if videocrypt or videocrypt2:
+            self.services.append(Videocrypt(p, videocrypt, videocrypt2,
+                                            device=dev))
+        if videocrypts:
+            self.services.append(VideocryptS(p, videocrypts, device=dev))
+        if syster:
+            self.services.append(Syster(p, syster, cnr=bool(systercnr),
+                                        key_table=syster_key_table,
+                                        device=dev))
+        elif systercnr:
+            self.services.append(SysterCNR(p, systercnr,
+                                           key_table=syster_key_table,
+                                           device=dev))
+        if d11:
+            self.services.append(D11(p, d11, device=dev))
         if acp:
             self.services.append(ACP(p, device=dev))
         if vitc:
@@ -200,13 +233,14 @@ class Encoder:
                   len(p.vfilter_taps) if p.vfilter_taps is not None else 0)
             if nt:
                 lag += 1 + (nt // 2 + p.width - 1) // p.width
-            sis_chain = AudioChain(conf, p.sample_rate, p.width, self.source)
+            sis_chain = AudioChain(conf, p.sample_rate, p.width, self.source,
+                                   systeraudio=systeraudio)
             self.services.append(SiS(p, sis, sis_chain, lag, device=dev))
         if teletext:
             self.services.append(Teletext(p, teletext, clock=teletext_clock,
                                           device=dev))
-        # services that read lines ahead extend the bottom halo of each
-        # synthesised block
+        # services that read lines ahead (the Syster shuffle: up to 344)
+        # extend the bottom halo of each synthesised block
         self.halo_after = max([1] + [getattr(s, "lookahead", 1)
                                      for s in self.services])
         # only VITS's chroma part reads the line carrier
@@ -219,7 +253,7 @@ class Encoder:
         if conf.s_video and self.resampler is not None:
             raise NotImplementedError(
                 "--pixelrate with --s-video is not supported")
-        self._init_audio(a2stereo)
+        self._init_audio(a2stereo, systeraudio)
 
         # FM video modulation (src/video.c:4564-4585).  The reference's
         # int32 phase recurrence truncation-walks by a content-dependent
@@ -302,12 +336,13 @@ class Encoder:
         # cycle, so vbidata truncates the forward sync spill of the first
         # (olines - 1) lines there.  (raster or raw baseband, [SECAM],
         # [services], [resampler], [vfilter], audio, [FM video], [swap],
-        # [offset], [passthru], output; each ported service keeps one
-        # ring line, src/video.c:4215-4359)
+        # [offset], [passthru], output; the services' lines are
+        # _SVC_NLINES)
         procs = [(1 if raw_bb_file else 3, False)]
         if self.secam is not None:
             procs.append((1, True))
-        procs += [(1, False)] * len(self.services)
+        procs += [(_SVC_NLINES[type(s).__name__], False)
+                  for s in self.services]
         if self.resampler is not None:
             procs.append((2, True))
         if self.vf_taps is not None:
@@ -333,13 +368,15 @@ class Encoder:
         self._rgb_cache: tuple | None = None
         self._fpb_warned = False
 
-    def _init_audio(self, a2stereo: bool):
+    def _init_audio(self, a2stereo: bool, systeraudio: bool):
         """Audio subcarriers (FM mono, the A2 second carrier and pilot,
-        AM, NICAM), added after the video filter (src/video.c:4561)."""
+        AM, NICAM, DANCE), added after the video filter
+        (src/video.c:4561)."""
         p = self.out_params
         dev = self.device
         self.audio = AudioChain(self.conf, p.sample_rate, p.width,
-                                self.source, a2stereo=a2stereo)
+                                self.source, systeraudio=systeraudio,
+                                a2stereo=a2stereo)
         nlines = self.frames_per_block * p.lines
         nseg = self.audio.nseg
         self.fm_statics = None
@@ -402,9 +439,17 @@ class Encoder:
             assert spp + nf_max * nicam_mod.NICAM_FRAME_SYMS <= L
             self.nicam_dev_statics = nicam_dev.make_dev_statics(
                 nf_max, L, spp, device=dev)
+        # DANCE (ntsc-bs): NICAM's pulse-matrix synthesis of a sign stream
+        # that the host codes (audio/dance.py)
+        self.dance_statics = None
+        if self.audio.dance is not None:
+            dt = self.audio.dance
+            self.dance_statics = audio_synth.make_nicam_statics(
+                dt["taps"], dt["num"], dt["den"], p.width, dt["timing"],
+                device=dev)
         self.has_audio = any(x is not None for x in (
             self.fm_statics, self.fm_right_statics, self.am_statics,
-            self.nicam_statics))
+            self.nicam_statics, self.dance_statics))
 
     # ------------------------------------------------------------------
     def _block_meta(self, block_no: int) -> dict:
@@ -610,6 +655,12 @@ class Encoder:
             out_i, out_q = audio_synth.nicam_add(
                 self.nicam_statics, out_i, out_q, signs_i, signs_q,
                 nc["offq"], nc["offr"], nc["cc_off"], audio["nicam_k0mod"])
+        if self.dance_statics is not None:
+            dc = audio["dance"]
+            out_i, out_q = audio_synth.nicam_add(
+                self.dance_statics, out_i, out_q, dc["signs_i"],
+                dc["signs_q"], dc["offq"], dc["offr"], dc["cc_off"],
+                audio["dance_k0mod"])
 
         if self.fm_video_statics is not None:
             tri = None
@@ -755,6 +806,12 @@ class Encoder:
                 nc[k] = torch.as_tensor(nc[k], device=self.device)
             args["nicam"] = nc
             args["nicam_k0mod"] = a_k0 % self.nicam_statics.period
+        if self.dance_statics is not None:
+            dc = self.audio.dance_block(a_k0, nlines, self.dance_statics)
+            for k in ("signs_i", "signs_q", "cc_off"):
+                dc[k] = torch.as_tensor(dc[k], device=dev)
+            args["dance"] = dc
+            args["dance_k0mod"] = a_k0 % self.dance_statics.period
         if self.fm_video_statics is not None:
             if block_no not in self._fm_r:
                 raise RuntimeError(

@@ -5,7 +5,10 @@ Port of the parts of hacktv_tpu/runtime that the port calls: the exact
 serial FM carrier (`FmCarrierExact`, the reference's int32 phasor
 recurrence), the SECAM host-exact chroma kernels (`rt_fir_block_i16`,
 `rt_iir1_exact_i16`, `rt_secam_carrier_exact`, called from
-video/secam.py) and the threaded file sink (`NativeFileSink`).
+video/secam.py), the scramblers' PRBS recurrences (`vc_clock16`, the
+Videocrypt cut bytes, and `ng_event`, the Syster shuffle's PRBS event and
+permutation, called from services/) and the threaded file sink
+(`NativeFileSink`).
 
 The library is compiled from the repo's `native/hacktv_rt.cpp` with g++
 (the flags of native/Makefile) into `hacktv_tpu_torch/_build/` at first
@@ -106,6 +109,10 @@ def _declare(lib) -> None:
     lib.rt_secam_carrier_exact.argtypes = [
         p, c.c_long, c.c_long, c.c_long, p, p, p, p, c.c_int32, p, p,
         c.c_int]
+    lib.rt_vc_clock16.restype = None
+    lib.rt_vc_clock16.argtypes = [p, c.c_long, p]
+    lib.rt_ng_event.restype = None
+    lib.rt_ng_event.argtypes = [p, p, p]
     lib.rt_file_sink_open.restype = p
     lib.rt_file_sink_open.argtypes = [c.c_char_p, c.c_int, c.c_int,
                                       c.c_size_t]
@@ -118,6 +125,36 @@ def _declare(lib) -> None:
 def ptr(a: np.ndarray):
     """A contiguous numpy array's data pointer for a ctypes call."""
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def vc_clock16(state: np.ndarray, n: int) -> np.ndarray:
+    """n Videocrypt cut bytes (src/videocrypt.c:456-472): each is the
+    current (c >> 8) byte, then 16 clocks of the dual-LFSR multiplexer.
+    `state` is uint64 [sr1, sr2, c], advanced in place."""
+    _check(state, np.uint64, (3,))
+    out = np.empty(n, dtype=np.uint8)
+    load().rt_vc_clock16(ptr(state), n, ptr(out))
+    return out
+
+
+def ng_event(state: np.ndarray, table: np.ndarray,
+             order: np.ndarray) -> None:
+    """One Syster PRBS event (src/syster.c:706-724, 305-327): 16 clocks of
+    the dual LFSR give (s, r), and Kuhn's expansion of them over the key
+    table updates `order` (int32 [287]) in place.  `state` is uint64
+    [sr1, sr2, s, r]: sr1 and sr2 are read and advanced, s and r
+    written."""
+    _check(state, np.uint64, (4,))
+    _check(table, np.uint8, (256,))
+    _check(order, np.int32, (287,))
+    load().rt_ng_event(ptr(state), ptr(table), ptr(order))
+
+
+def _check(a: np.ndarray, dtype, shape: tuple) -> None:
+    """A buffer handed to a native call: its dtype, shape and layout."""
+    if a.dtype != dtype or a.shape != shape or not a.flags.c_contiguous:
+        raise ValueError(f"native buffer: want {np.dtype(dtype)} {shape} "
+                         f"contiguous, got {a.dtype} {a.shape}")
 
 
 def threads() -> int:

@@ -27,10 +27,9 @@ SWEEP_C = ["pal-k", "k", "secam-b", "secam-g", "secam-i", "e", "819",
            "apollo-fm"]
 # accepted modes held by other files at their own rates
 HELD_ELSEWHERE = ["i", "g", "pal", "m", "secam", "l", "d", "a", "pal-fm",
-                  "ntsc-fm", "secam-fm"]
-# the modes that still raise: DANCE (ntsc-bs) and MAC
-REFUSED = ["ntsc-bs", "d2mac-fm", "d2mac-am", "d2mac", "dmac-fm", "dmac-am",
-           "dmac"]
+                  "ntsc-fm", "secam-fm", "ntsc-bs"]
+# the modes that still raise: MAC
+REFUSED = ["d2mac-fm", "d2mac-am", "d2mac", "dmac-fm", "dmac-am", "dmac"]
 BLOCKS = 2
 
 

@@ -1,8 +1,9 @@
 """The port's command line (python -m hacktv_tpu_torch): its file output
 equals Encoder.encode_block byte for byte, PAL-I with NICAM included, and
 the JAX package's command line byte for byte on each switch that changes
-the mode's configuration, S-Video and --pixelrate among them; it refuses
-what it does not cover."""
+the mode's configuration, S-Video and --pixelrate among them, and on
+each scrambler switch and ntsc-bs; the scramblers' checks exit with the
+JAX command line's messages; it refuses what it does not cover."""
 
 from __future__ import annotations
 
@@ -86,7 +87,7 @@ def test_cli_noaudio_and_type(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--videocrypt", "free"], SystemExit),     # switch not in the subset
+    (["--eurocrypt", "filmnet"], SystemExit),   # switch not in the subset
     (["-m", "d2mac-fm"], NotImplementedError),  # MAC
     (["-m", "pal", "clip.mp4"], NotImplementedError),
 ])
@@ -203,3 +204,52 @@ def test_cli_pixel_rate_warning(tmp_path, capsys):
     err = capsys.readouterr().err
     assert "Pixel rate 4000100 may not work well" in err
     assert "Next valid pixel rates: 4000000, 4015625" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "i", "--filter", "--videocrypt", "free"],
+    ["-m", "pal", "--videocrypt", "free", "--videocrypt2", "free"],
+    ["-m", "pal", "--videocrypts", "conditional"],
+    ["-m", "l", "--syster", "premiere-fa", "--systeraudio"],
+    ["-m", "pal", "--syster", "cfrfa", "--systercnr", "cfrfa",
+     "--key-table-1"],
+    ["-m", "pal", "--systercnr", "premiere-fa", "--key-table-2"],
+    ["-m", "l", "--d11", "premiere-fa"],
+    ["-m", "ntsc-bs"],
+], ids=lambda a: "".join(a[1:6]))
+def test_cli_scramblers_match_jax_cli(tmp_path, argv):
+    """Each scrambler switch, and ntsc-bs with DANCE: the port's and the
+    JAX package's command lines write the same bytes over two one-frame
+    blocks."""
+    tc.jax_runtime()
+    tail = ["--frames-per-block", "1", "--frames", "2"]
+    out_t, out_j = tmp_path / "t.bin", tmp_path / "j.bin"
+    assert cli.main(argv + tail + ["--device", "cpu", "-o", str(out_t),
+                                   "test"]) == 0
+    assert jcli.main(argv + tail + ["-o", str(out_j), "test"]) == 0
+    got, ref = out_t.read_bytes(), out_j.read_bytes()
+    assert len(got) == len(ref) > 0
+    ndiff = np.count_nonzero(np.frombuffer(got, np.int16)
+                             != np.frombuffer(ref, np.int16))
+    assert got == ref, f"{ndiff} samples differ"
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "l", "--videocrypt", "free"],
+    ["-m", "pal", "--videocrypt", "free", "--videocrypt2", "conditional"],
+    ["-m", "pal", "--videocrypt", "free", "--syster", "premiere-fa"],
+    ["-m", "m", "--videocrypts", "free"],
+    ["-m", "m", "--syster", "premiere-fa"],
+    ["-m", "m", "--d11", "premiere-fa"],
+    ["-m", "pal", "--acp", "--d11", "premiere-fa"],
+], ids=lambda a: "".join(a[1:6]))
+def test_cli_scrambler_exits_match_jax(tmp_path, argv):
+    """The JAX command line's scrambler checks: the same exit message."""
+    msgs = []
+    for main in (cli.main, jcli.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["--frames", "1", "-o", str(tmp_path / "x.bin"),
+                         "test"] + (["--device", "cpu"]
+                                    if main is cli.main else []))
+        msgs.append(str(e.value.code))
+    assert msgs[0] == msgs[1] and msgs[0]

@@ -3,9 +3,10 @@ versions (bit for bit, the FM pre-emphasis filter's 67 and 71 taps
 included); the NICAM coder and pulse synthesis, the SECAM chroma program,
 the AM carrier, the A2 pilot phase, FM video's closed form, the offset
 rotation, the video resampler, the VBI services' render under TF32 and
-the encoder (the legacy raster modes, S-Video, --pixelrate and the VBI
-services among its configurations) on the card against their CPU path
-(byte for byte).  They skip without an NVIDIA card.  The file imports
+the encoder (the legacy raster modes, S-Video, --pixelrate, the VBI
+services, the scramblers and DANCE among its configurations), DANCE's
+two-part pulse product under TF32 and the scramblers' applies on the card
+against their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -423,3 +424,83 @@ def test_render_exact_under_tf32(cuda, tf32):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = was
     assert torch.equal(got, ref)
+
+
+# the scramblers and DANCE, one-frame blocks: (mode, rate, arguments)
+SCRAMBLE_CASES = {
+    "i-videocrypt-vsb": ("i", 16_000_000, {"videocrypt": "free",
+                                           "vfilter": True}),
+    "pal-videocrypt-1-2": ("pal", 16_000_000, {"videocrypt": "free",
+                                               "videocrypt2": "free"}),
+    "pal-videocrypt-conditional": ("pal", 16_000_000,
+                                   {"videocrypt": "conditional"}),
+    "i-videocrypts": ("i", 16_000_000, {"videocrypts": "free"}),
+    "l-syster-vsb": ("l", 16_000_000, {"syster": "premiere-fa",
+                                       "systeraudio": True,
+                                       "vfilter": True}),
+    "pal-syster-systercnr": ("pal", 16_000_000,
+                             {"syster": "premiere-fa",
+                              "systercnr": "premiere-fa"}),
+    "pal-systercnr": ("pal", 16_000_000, {"systercnr": "premiere-fa"}),
+    "l-d11": ("l", 16_000_000, {"d11": "premiere-fa"}),
+    "i-sis-systeraudio": ("i", 16_000_000, {"sis": "dcsis",
+                                            "systeraudio": True}),
+    "ntsc-bs": ("ntsc-bs", 16_000_000, {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCRAMBLE_CASES))
+def test_scramblers_card_match_cpu(cuda, name):
+    """The scramblers and DANCE, one-frame blocks 0-3, card against CPU:
+    Syster's 345-line halo crosses every block boundary."""
+    mode, rate, kw = SCRAMBLE_CASES[name]
+    _card_vs_cpu(cuda, name, lambda d: Encoder(mode, rate, device=d, **kw),
+                 4)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_dance_product_card_matches_cpu(cuda, tf32):
+    """DANCE's two-part pulse product (taps up to |5,605|) on the card
+    equals the CPU's at a 64-frame block's shapes, with TF32 on and off;
+    a one-part f32 product of the same taps under TF32 would round."""
+    e = {d: Encoder("ntsc-bs", 16_000_000, frames_per_block=64, device=d)
+         for d in ("cpu", "cuda")}
+    nl = 64 * 525
+    dc = e["cpu"].audio.dance_block(0, nl, e["cpu"].dance_statics)
+    res = {}
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        for d, enc in e.items():
+            zero = torch.zeros((nl, enc.params.width), device=d)
+            out = synth.nicam_add(
+                enc.dance_statics, zero, zero,
+                torch.as_tensor(dc["signs_i"], device=d),
+                torch.as_tensor(dc["signs_q"], device=d), dc["offq"],
+                dc["offr"], torch.as_tensor(dc["cc_off"], device=d), 0)
+            res[d] = [t.cpu() for t in out]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    assert all(torch.equal(a, b) for a, b in zip(res["cuda"], res["cpu"]))
+
+
+@pytest.mark.parametrize("name", ["i-videocrypt-vsb", "l-syster-vsb"])
+def test_scrambler_applies_card_match_cpu(cuda, name):
+    """Each scrambler's apply at the 64-frame block's shape (its halo
+    included) on a seeded block, card against CPU."""
+    from hacktv_tpu_torch.services import arrays_to_device
+    mode, rate, kw = SCRAMBLE_CASES[name]
+    g = Encoder(mode, rate, frames_per_block=64, device=cuda, **kw)
+    c = Encoder(mode, rate, frames_per_block=64, device="cpu", **kw)
+    nl = 64 * g.params.lines
+    n = nl + 1 + g.halo_after
+    rng = np.random.default_rng(8)
+    block = rng.integers(-12000, 24000, (n, g.params.width)).astype(
+        np.float32)
+    for sg, sc in zip(g.services, c.services):
+        ag = sg.block_arrays(nl - 1, n, np.zeros(n, bool))
+        ac = sc.block_arrays(nl - 1, n, np.zeros(n, bool))
+        got = sg.apply(torch.as_tensor(block, device=cuda),
+                       arrays_to_device(ag, cuda)).cpu()
+        ref = sc.apply(torch.as_tensor(block), arrays_to_device(ac, "cpu"))
+        assert torch.equal(got, ref), type(sg).__name__

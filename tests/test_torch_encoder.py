@@ -131,9 +131,10 @@ def test_blocks_must_be_sequential():
 
 
 @pytest.mark.parametrize("mode,kw", [("l", {"pixel_rate": 13_500_000}),
-                                     ("ntsc-bs", {}),
-                                     ("pal", {"videocrypt": "free"}),
-                                     ("pal", {"syster": "premiere-fa"}),
+                                     ("d2mac", {}),
+                                     ("pal", {"devices": ["cuda:0",
+                                                          "cuda:1"]}),
+                                     ("pal", {"eurocrypt": "filmnet"}),
                                      ("d2mac-fm", {})])
 def test_unported_options_raise(mode, kw):
     with pytest.raises(NotImplementedError):

@@ -15,14 +15,15 @@ def test_mode_matches_jax(mode):
 
 
 def test_sweep_covers_every_accepted_mode():
-    """The registry's 50 modes: 43 run in the port (each held by one of
-    the sweep files or by another test file), and only DANCE and the six
-    MAC modes still raise NotImplementedError."""
+    """The registry's 50 modes: 44 run in the port (each held by one of
+    the sweep files or by another test file; ntsc-bs by
+    tests/test_torch_dance.py), and only the six MAC modes still raise
+    NotImplementedError."""
     from hacktv_tpu_torch import Encoder
     from hacktv_tpu_torch.config.standards import REGISTRY
     swept = tm.SWEEP_A + tm.SWEEP_B + tm.SWEEP_C
     held = swept + tm.HELD_ELSEWHERE
-    assert len(held) == len(set(held)) == 43
+    assert len(held) == len(set(held)) == 44
     assert sorted(held + tm.REFUSED) == sorted(REGISTRY)
     for mode in tm.REFUSED:
         with pytest.raises(NotImplementedError):

@@ -11,7 +11,9 @@ over sequential one-frame blocks 0-2: the satellite FM modes (PAL-FM at
 16 MS/s, with energy dispersal, with the CCIR-405 pre-emphasis filter at
 20.25 MS/s, its 67 taps; NTSC-FM with its 71; SECAM-FM) and SECAM-L with
 the host-exact chroma.  The command line's frames, written through the
-native sink, equal the port's Encoder blocks.  Inputs come from seeds."""
+native sink, equal the port's Encoder blocks.  The scramblers' native
+recurrences (Videocrypt's cut bytes, Syster's PRBS event and shuffle
+order) equal the port's plain Python versions.  Inputs come from seeds."""
 
 from __future__ import annotations
 
@@ -257,3 +259,46 @@ def test_cli_matches_encoder(tmp_path, argv, mode, rate, kw):
     if "uint8" in argv:
         ref = ((ref.astype(np.int32) + 32768) >> 8).astype(np.uint8)
     assert out.read_bytes() == ref.tobytes()
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_vc_clock16_matches_plain(seed):
+    """rt_vc_clock16 through the port's loader against the port's Python
+    recurrence (_VCState._clock16), 600 cut bytes from a seeded state."""
+    from hacktv_tpu_torch.services.videocrypt import _VCState
+    rng = np.random.default_rng(seed)
+    sr1, sr2, c = (int(rng.integers(0, 1 << 31)),
+                   int(rng.integers(0, 1 << 29)),
+                   int(rng.integers(0, 1 << 16)))
+    st = np.array([sr1, sr2, c], dtype=np.uint64)
+    got = runtime.vc_clock16(st, 600)
+    plain = _VCState((), ())
+    plain.sr1, plain.sr2, plain.c = sr1, sr2, c
+    want = np.array([plain._clock16() for _ in range(600)], np.uint8)
+    tc.assert_same(got, want, "cut bytes")
+    assert (int(st[0]), int(st[1]), int(st[2])) == \
+        (plain.sr1, plain.sr2, plain.c)
+
+
+@pytest.mark.parametrize("mode,key_table", [("premiere-fa", 0),
+                                            ("cfrca", 0),
+                                            ("ntvfa", 1)])
+def test_ng_event_matches_plain(mode, key_table):
+    """rt_ng_event through the port's loader against the port's Python
+    recurrences (_NGState._prbs_update, _update_field_order): 40 chained
+    events from the ECM's control word, each giving the same (s, r), LFSR
+    state and 287-line order."""
+    from hacktv_tpu_torch.services.syster import _NGState
+    nat = _NGState(mode, syster=True, systercnr=False, key_table=key_table)
+    plain = _NGState(mode, syster=True, systercnr=False,
+                     key_table=key_table)
+    for ng in (nat, plain):
+        ng.cw = ng.ecm_cw
+        ng._prbs_reset()
+    for i in range(40):
+        nat._event(7, 2)
+        plain._event_plain()
+        assert (nat.sr1, nat.sr2, nat.s, nat.r) == \
+            (plain.sr1, plain.sr2, plain.s, plain.r), i
+        tc.assert_same(np.asarray(nat.order, np.int64),
+                       np.asarray(plain.order, np.int64), f"order {i}")

@@ -152,11 +152,11 @@ def test_secam_blocks_must_be_sequential():
 
 
 @pytest.mark.parametrize("kw", [{"pixel_rate": 13_500_000},
-                                {"d11": "free"},
+                                {"devices": ["cuda:0", "cuda:1"]},
                                 {"moving": True}])
 def test_unported_secam_options_raise(kw):
     """SECAM with the video resampler (--pixelrate, which the JAX package
-    cannot run either), with Discret 11 and with a moving-video source
+    cannot run either), on several devices and with a moving-video source
     raise; none falls back to another path."""
     kw = dict(kw)
     conf = tget_mode("l")
