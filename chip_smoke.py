@@ -27,8 +27,14 @@ Sky's Videocrypt decoders), l-syster-vsb (Encoder("l", 16 MS/s, --filter,
 syster="premiere-fa", systeraudio=True): Canal+ France, Nagravision
 Syster on SECAM-L with the sound inverted) and ntsc-bs
 (Encoder("ntsc-bs", 16 MS/s): Japan's BS satellite, FM video with DANCE
-digital sound).  Teletext's clock is fixed, and caption pairs are queued
-with write_pair before the first block.
+digital sound); and the D/D2-MAC paths (video/mac.py MacEncoder at 20.25
+MS/s, W = 1296): d2mac-fm-ec (MacEncoder("d2mac-fm", eurocrypt=Eurocrypt(
+"filmnet"), scramble_audio=True): European DBS satellite of the 1990s,
+D2-MAC with Eurocrypt M, single cut), dmac-fm (MacEncoder("dmac-fm"):
+BSB's UK D-MAC service, audio at address 128) and d2mac-am-dcut
+(MacEncoder("d2mac-am", scramble_video=2): D2-MAC on cable, double
+cut).  Teletext's clock and Eurocrypt's are fixed, and caption pairs are
+queued with write_pair before the first block.
 
 Phases, one line each (any failure exits non-zero before the result):
 
@@ -70,7 +76,12 @@ Phases, one line each (any failure exits non-zero before the result):
      dance: ntsc-bs's host DANCE coder (frames, signs: dance_block) per
      block and its two-part pulse product (nicam_add) on the card
      against the CPU, with TF32 on (byte-equal required), and its card
-     time;
+     time; and mac: each MAC path at the 64-frame block's shapes, its
+     host multiplex (_prepare_host) per block, the card step and within
+     it the three duobinary products, the cut gather and FM, each timed
+     alone; the products on the card with TF32 off and on against the
+     CPU (byte-equal required), with their bytes and FLOP bound, and the
+     step's peak card memory;
   9. end to end: each path at 64 frames per block, seeded noise for
      sound: 2 warm-up and 8 timed blocks (the host's enqueue time and the
      block time to the card's end; for FM video on the host, to the end
@@ -91,12 +102,17 @@ Phases, one line each (any failure exits non-zero before the result):
      ACP on PAL and NTSC, raw teletext packets, SiS with the VSB filter),
      and the scramblers (Videocrypt conditional, I and II together,
      Videocrypt S, Syster, cut-and-rotate alone and with Syster,
-     Discret 11 on SECAM-L, SiS with the inverted sound): byte-identical
-     required;
+     Discret 11 on SECAM-L, SiS with the inverted sound), and the MAC
+     configurations (the six modes, the cuts, scrambled audio, Eurocrypt
+     EC-M and 3DES, MAC teletext from a page and from raw packets, mono
+     medium-quality linear audio, 13.5 MHz pixels, a moving source in
+     two-frame blocks, the pipelined multiplex), each with TF32 off and
+     on: byte-identical required;
  11. the command line, 4 frames each of -m i, -m i --filter with
      teletext, WSS, VITS and VITC, -m pal-fm --filter, -m pal --s-video
      --filter, -m i --pixelrate 14750000, -m i --filter --videocrypt
-     free and -m ntsc-bs to files through the native sink.
+     free, -m ntsc-bs, -m d2mac-fm --eurocrypt ctv and -m dmac
+     --double-cut to files through the native sink.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -120,6 +136,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+F64_FLOP_PER_S = 67e12         # H100 SXM f64 on the tensor cores
 FPB = 64                       # frames per block on the main path
 TIMED_BLOCKS = 8
 WARM_BLOCKS = 2
@@ -201,6 +218,42 @@ CPU_PATHS = {**PATHS,
              "l-d11": ("l", 16_000_000, False, {"d11": "premiere-fa"}),
              "i-sis-systeraudio": ("i", 16_000_000, False, {
                  "sis": "dcsis", "systeraudio": True})}
+# D/D2-MAC paths (video/mac.py MacEncoder): (mode, sample rate, arguments);
+# "eurocrypt" names a provider (made with EUROCRYPT_TIME as its clock),
+# "conf" overrides the mode's configuration, "moving" sets a seeded
+# moving source, "fpb" the frames per block of the card-vs-CPU check
+MAC_RATE = 20_250_000
+MAC_PATHS = {"d2mac-fm-ec": ("d2mac-fm", MAC_RATE, {
+                 "eurocrypt": "filmnet", "scramble_audio": True}),
+             "dmac-fm": ("dmac-fm", MAC_RATE, {}),
+             "d2mac-am-dcut": ("d2mac-am", MAC_RATE, {"scramble_video": 2})}
+# the card against the CPU: the MAC paths and these
+MAC_CPU_PATHS = {**MAC_PATHS,
+                 "d2mac": ("d2mac", MAC_RATE, {}),
+                 "d2mac-fm": ("d2mac-fm", MAC_RATE, {}),
+                 "dmac": ("dmac", MAC_RATE, {}),
+                 "dmac-am": ("dmac-am", MAC_RATE, {}),
+                 "d2mac-scut": ("d2mac", MAC_RATE, {"scramble_video": 1}),
+                 "dmac-dcut": ("dmac", MAC_RATE, {"scramble_video": 2}),
+                 "d2mac-scramble-audio": ("d2mac", MAC_RATE,
+                                          {"scramble_audio": True}),
+                 "dmac-fm-cplus": ("dmac-fm", MAC_RATE,
+                                   {"eurocrypt": "cplus"}),
+                 "d2mac-teletext": ("d2mac", MAC_RATE,
+                                    {"teletext": "tests/data/demo.tti"}),
+                 "d2mac-teletext-raw": ("d2mac", MAC_RATE, {
+                     "teletext": "raw:tests/data/raw_tt_packets.bin"}),
+                 "d2mac-mono-mq-linear-l2": ("d2mac", MAC_RATE, {"conf": {
+                     "mac_audio_stereo": False, "mac_audio_quality": False,
+                     "mac_audio_companded": False,
+                     "mac_audio_protection": True}}),
+                 "d2mac-pixelrate": ("d2mac", MAC_RATE,
+                                     {"pixel_rate": 13_500_000}),
+                 "d2mac-moving-2f": ("d2mac", MAC_RATE,
+                                     {"moving": True, "fpb": 2}),
+                 "dmac-fm-pipelined": ("dmac-fm", MAC_RATE,
+                                       {"pipeline_mux": True})}
+EUROCRYPT_TIME = 1_200_000_000
 # the scramble phase: the scrambled e2e paths and these
 SCRAMBLE_PATHS = ("i-videocrypt-vsb", "l-syster-vsb", "i-videocrypts",
                   "pal-syster-systercnr", "l-d11")
@@ -248,6 +301,55 @@ def build(spec, device, source=None, frames_per_block=1):
             for pair in CAPTIONS:
                 svc.write_pair(*pair)
     return enc
+
+
+def build_mac(spec, device, source=None, frames_per_block=1):
+    """The MacEncoder of a MAC_PATHS/MAC_CPU_PATHS entry."""
+    from hacktv_tpu_torch.config import get_mode
+    from hacktv_tpu_torch.services.eurocrypt import Eurocrypt
+    from hacktv_tpu_torch.video.mac import MacEncoder
+    mode, rate, kw = spec
+    kw = dict(kw)
+    kw.pop("fpb", None)
+    if kw.pop("moving", False):
+        from hacktv_tpu_torch.av.noise import MovingNoiseSource
+        source = MovingNoiseSource(*MacEncoder.active_geometry(
+            get_mode(mode), rate))
+    conf = get_mode(mode)
+    if "conf" in kw:
+        conf = replace(conf, **kw.pop("conf"))
+    if "eurocrypt" in kw:
+        kw["eurocrypt"] = Eurocrypt(kw["eurocrypt"], now=EUROCRYPT_TIME)
+    if "teletext" in kw:
+        tt = kw["teletext"]
+        raw = tt.startswith("raw:")
+        kw["teletext"] = ("raw:" if raw else "") + os.path.join(
+            HERE, tt[4:] if raw else tt)
+        kw["teletext_clock"] = teletext_clock
+    return MacEncoder(conf, rate, source=source,
+                      frames_per_block=frames_per_block, device=device, **kw)
+
+
+def make_path(path, device, frames_per_block):
+    """A PATHS or MAC_PATHS entry's encoder on seeded noise sound, with
+    its sample rate and whether it runs the video filter."""
+    if path in MAC_PATHS:
+        spec = MAC_PATHS[path]
+        return (build_mac(spec, device, mac_noise_source(spec),
+                          frames_per_block), spec[1], False)
+    spec = PATHS[path]
+    return (build(spec, device, noise_source(spec), frames_per_block),
+            spec[1], spec[2])
+
+
+def mac_noise_source(spec):
+    """Seeded noise sound on the test card, sized for the MAC mode."""
+    from hacktv_tpu_torch.av.noise import NoiseSource
+    from hacktv_tpu_torch.config import get_mode
+    from hacktv_tpu_torch.video.mac import MacEncoder
+    aw, al = MacEncoder.active_geometry(get_mode(spec[0]), spec[1],
+                                        spec[2].get("pixel_rate", 0))
+    return NoiseSource(aw, al)
 
 
 def noise_source(spec):
@@ -799,9 +901,117 @@ def dance_phase() -> None:
     torch.cuda.empty_cache()
 
 
+def mac_phase() -> None:
+    """Each MAC path at the 64-frame block's shapes: the host multiplex
+    and upload buffer (_prepare_host) per block (median of blocks 1-3),
+    the card step (_step_impl_dev on block 3's buffer) and, each alone
+    on the inputs the step gave them, the three duobinary products, the
+    cut gather and FM (CUDA events); the step's peak card memory.  The
+    (f64) products on the card with TF32 off and on against the CPU:
+    byte-equal required; beside them the count of values that f32
+    products under TF32 get wrong.  Their bound: the larger of the bytes
+    (symbols and bases read once, the two sums written once, all f64)
+    over the memory rate and the banded FLOP (2 per nonzero basis tap
+    and row) over the f64 peak, which on an H100 SXM is the f32 one."""
+    from hacktv_tpu_torch.rf import ops as rf_ops
+    from hacktv_tpu_torch.video import mac as mac_mod
+    for path in MAC_PATHS:
+        g, _, _ = make_path(path, "cuda", FPB)
+        host = []
+        for b in range(4):
+            t = time.perf_counter()
+            prep = g._prepare_host(b)
+            host.append(time.perf_counter() - t)
+        seen = {}
+
+        def keep(name, fn):
+            def wrapped(*a):
+                seen[name] = a
+                out = fn(*a)
+                seen[name + "_out"] = out
+                return out
+            return wrapped
+        g.symbols = keep("symbols", g.symbols)
+        g.cut = keep("cut", g.cut)
+        buf = torch.as_tensor(prep[1]).to("cuda")
+        planes, meta = g._device_planes(3 * FPB), g._line_meta()
+        pol = g._pol_c[0]
+        fm_r0 = torch.zeros((), dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        g._step_impl_dev(buf, pol, planes, meta, fm_r0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del g.symbols, g.cut
+        sym = seen["symbols_out"]
+        canvas, scr, xc1, xc2 = seen["cut"]
+        step_ms = cuda_ms(
+            lambda: g._step_impl_dev(buf, pol, planes, meta, fm_r0), 5)
+        prod_ms = cuda_ms(lambda: g.products(sym), 5)
+        cut_ms = (cuda_ms(lambda: g.cut(canvas, scr, xc1, xc2), 5)
+                  if not g.vsam & 1 else None)
+        fm_ms = (cuda_ms(lambda: rf_ops.fm_video_modulate(
+            g.fm_video_statics, seen["cut_out"], fm_r0), 5)
+            if g.fm_video_statics is not None else None)
+        # exactness: card (TF32 off, on) against the CPU
+        ref = mac_mod.duobinary_products(
+            tuple(b.cpu() for b in g.d_bases), sym.cpu())
+        diff, f32_wrong = {}, 0
+        was = torch.backends.cuda.matmul.allow_tf32
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                got = [t.cpu() for t in g.products(sym)]
+                if tf32:
+                    nrows = sym.shape[0] - 2
+                    B = [torch.as_tensor(a, device="cuda")
+                         for a in (g.Bm, g.B0, g.Bp)]
+                    s32 = sym.float()
+                    plain = (s32[1:nrows + 1] @ B[1] + s32[0:nrows] @ B[2],
+                             s32[2:nrows + 2] @ B[0])
+                    f32_wrong = sum(int((a.cpu() != b).sum())
+                                    for a, b in zip(plain, ref))
+                    del B, s32, plain
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = was
+            diff[f"tf32_{'on' if tf32 else 'off'}"] = sum(
+                int((a != b).sum()) for a, b in zip(got, ref))
+        rows, nbits = sym.shape
+        W = g.width
+        n = rows - 2
+        nnz = sum(int(np.count_nonzero(a)) for a in (g.Bm, g.B0, g.Bp))
+        nbytes = 8 * (rows * nbits + 3 * nbits * W + 2 * n * W)
+        flop = 2 * n * nnz
+        dense_flop = 3 * 2 * n * nbits * W
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flop / F64_FLOP_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        phase("mac", path=path, rows=rows, nbits=nbits, width=W,
+              prepare_host_ms=f"{statistics.median(host[1:]) * 1e3:.2f}",
+              step_ms=f"{step_ms:.3f}", products_ms=f"{prod_ms:.3f}",
+              cut_ms="-" if cut_ms is None else f"{cut_ms:.3f}",
+              fm_ms="-" if fm_ms is None else f"{fm_ms:.3f}",
+              products_bound_ms=f"{bound_ms:.4f}",
+              products_bound_by="bytes" if t_bytes >= t_ops else
+              "operations",
+              products_bound_share=f"{bound_ms / prod_ms:.3f}",
+              products_bytes=nbytes, products_banded_flop=flop,
+              products_dense_flop=dense_flop,
+              max_basis=int(max(np.abs(a).max()
+                                for a in (g.Bm, g.B0, g.Bp))),
+              card_vs_cpu_differing=json.dumps(diff).replace(" ", ""),
+              f32_under_tf32_differing=f32_wrong,
+              step_peak_mem_gb=f"{peak / 1e9:.3f}",
+              card=json.dumps(CARD["smi"]))
+        if any(diff.values()):
+            fail(f"mac {path}: the card's products differ from the CPU's")
+        del g, seen, sym, canvas, buf, ref
+        torch.cuda.empty_cache()
+
+
 def e2e_phase(sf, path: str, profile_dir) -> dict:
-    mode, rate, vfilter, kw = PATHS[path]
-    enc = build(PATHS[path], "cuda", noise_source(PATHS[path]), FPB)
+    enc, rate, vfilter = make_path(path, "cuda", FPB)
     # FM video on the host finishes in collect_block (its FM recurrence):
     # there a block is timed to the end of its collection
     host_fm = getattr(enc, "fm_video_exact", None) is not None
@@ -922,6 +1132,35 @@ def profile_block(enc, b, path, out_dir):
           file=os.path.join(out_dir, f"profile_{path}.txt"))
 
 
+def mac_compare_phase() -> None:
+    """The MAC configurations, one-frame blocks 0-3 (two-frame where the
+    entry says), card against the CPU with TF32 off and on."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    for path, spec in MAC_CPU_PATHS.items():
+        fpb = spec[2].get("fpb", 1)
+        src = mac_noise_source(spec)
+        c = build_mac(spec, "cpu", src, fpb)
+        ref = [c.encode_block(b).astype(np.int64) for b in range(CPU_BLOCKS)]
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                g = build_mac(spec, "cuda", src, fpb)
+                got = [g.encode_block(b).astype(np.int64)
+                       for b in range(CPU_BLOCKS)]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = was
+            for b, (a, r) in enumerate(zip(got, ref)):
+                if a.shape != r.shape:
+                    fail(f"{path} block {b}: shape {a.shape} != {r.shape}")
+                nd = int(np.count_nonzero(a != r))
+                phase("card-vs-cpu", path=path, block=b,
+                      tf32="on" if tf32 else "off", frames=fpb,
+                      max_err=int(np.abs(a - r).max()), differing=nd,
+                      of=a.size)
+                if nd:
+                    fail(f"{path} block {b}: card and CPU differ")
+
+
 def cpu_compare_phase() -> None:
     for path, spec in CPU_PATHS.items():
         src = noise_source(spec)
@@ -950,23 +1189,30 @@ def cli_phase() -> None:
     sink: PAL-I, PAL-FM with the pre-emphasis filter, PAL S-Video with the
     low-pass, PAL-I from 14.75 MS/s pixels, PAL-I with teletext, WSS,
     VITS and VITC through the VSB filter (the teletext clock fixed),
-    PAL-I with Videocrypt through the VSB filter, and ntsc-bs."""
+    PAL-I with Videocrypt through the VSB filter, ntsc-bs, D2-MAC FM with
+    Eurocrypt and baseband D-MAC with the double cut (real output: the
+    sink writes one int16 a sample)."""
     demo = os.path.join(HERE, "tests", "data", "demo.tti")
     env = {**os.environ, "HACKTV_TPU_TELETEXT_TIME": str(TELETEXT_TIME)}
     with tempfile.TemporaryDirectory() as tmp:
-        for args, frame_samples in ((["-m", "i"], 640_000),
-                                    (["-m", "i", "--filter", "--teletext",
-                                      demo, "--wss", "16:9", "--vits",
-                                      "--vitc"], 640_000),
-                                    (["-m", "pal-fm", "--filter", "-s",
-                                      "20250000"], 810_000),
-                                    (["-m", "pal", "--s-video", "--filter"],
-                                     640_000),
-                                    (["-m", "i", "--pixelrate", "14750000"],
-                                     640_000),
-                                    (["-m", "i", "--filter", "--videocrypt",
-                                      "free"], 640_000),
-                                    (["-m", "ntsc-bs"], 533_925)):
+        # (arguments, int16 values a frame: samples times I and Q)
+        for args, frame_values in ((["-m", "i"], 2 * 640_000),
+                                   (["-m", "i", "--filter", "--teletext",
+                                     demo, "--wss", "16:9", "--vits",
+                                     "--vitc"], 2 * 640_000),
+                                   (["-m", "pal-fm", "--filter", "-s",
+                                     "20250000"], 2 * 810_000),
+                                   (["-m", "pal", "--s-video", "--filter"],
+                                    2 * 640_000),
+                                   (["-m", "i", "--pixelrate", "14750000"],
+                                    2 * 640_000),
+                                   (["-m", "i", "--filter", "--videocrypt",
+                                     "free"], 2 * 640_000),
+                                   (["-m", "ntsc-bs"], 2 * 533_925),
+                                   (["-m", "d2mac-fm", "--eurocrypt", "ctv",
+                                     "-s", "20250000"], 2 * 810_000),
+                                   (["-m", "dmac", "--double-cut", "-s",
+                                     "20250000"], 810_000)):
             out = os.path.join(tmp, "out.bin")
             t = time.perf_counter()
             r = subprocess.run(
@@ -981,9 +1227,9 @@ def cli_phase() -> None:
             phase("cli", args="".join(a for a in args if a != demo),
                   bytes=size,
                   seconds=f"{time.perf_counter() - t:.1f}")
-            if size != 4 * frame_samples * 2 * 2:
+            if size != 4 * frame_values * 2:
                 fail(f"cli {args} wrote {size} bytes, expected "
-                     f"{4 * frame_samples * 4}")
+                     f"{4 * frame_values * 2}")
             if not np.any(data):
                 fail(f"cli {args} wrote only zeros")
 
@@ -1038,8 +1284,9 @@ def main() -> int:
     vbi_phase()
     scramble_phase()
     dance_phase()
+    mac_phase()
     launches = {}
-    for path in PATHS:
+    for path in (*PATHS, *MAC_PATHS):
         launches[path] = e2e_phase(sf, path, args.profile)
     for path, rec in recs:
         rec["launches"] = launches[path]["fir_cplx" if rec["name"].endswith(
@@ -1047,6 +1294,7 @@ def main() -> int:
         if not rec["launches"]:
             fail(f"{path}: {rec['name']} was not launched on the main path")
     cpu_compare_phase()
+    mac_compare_phase()
     cli_phase()
     print(json.dumps({"kernels": [rec for _, rec in recs]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,4 +12,20 @@ from .config import REGISTRY, VidConfig, get_mode, list_modes  # noqa: F401
 from .encoder import Encoder  # noqa: F401
 from .rational import Rational  # noqa: F401
 
+
+def create_encoder(mode, sample_rate, **kwargs):
+    """Factory returning the right encoder class for a mode: `MacEncoder`
+    for D/D2-MAC (packet-multiplex raster), `Encoder` otherwise.  Both
+    take `device` (the CUDA card by default, or "cpu")."""
+    conf = get_mode(mode) if isinstance(mode, str) else mode
+    if conf.mac_mode is not None:
+        from .video.mac import MacEncoder
+        mac_kw = {k: v for k, v in kwargs.items()
+                  if k in ("pixel_rate", "source", "frames_per_block",
+                           "scramble_video", "scramble_audio", "eurocrypt",
+                           "timestamp", "device")}
+        return MacEncoder(conf, sample_rate, **mac_kw)
+    return Encoder(conf, sample_rate, **kwargs)
+
+
 __version__ = "0.1.0"

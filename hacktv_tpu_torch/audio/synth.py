@@ -111,6 +111,19 @@ _SC_PI63 = float.fromhex("0x1.921fb54442d18p-62")
 _M32 = 0xFFFFFFFF
 
 
+_INV_PIO4_DEV = {}
+
+
+def _inv_pio4(device) -> torch.Tensor:
+    """_INV_PIO4 as an int64 tensor on `device`, made once: a copy from
+    host memory in the step would wait for the card's queue."""
+    key = str(device)
+    if key not in _INV_PIO4_DEV:
+        _INV_PIO4_DEV[key] = torch.tensor(_INV_PIO4, dtype=torch.int64,
+                                          device=device)
+    return _INV_PIO4_DEV[key]
+
+
 def _reduce_large(x: torch.Tensor):
     """glibc's reduce_large at every element of an f32 tensor: (n, r) with
     x = n*pi/2 + r, in the integer arithmetic glibc uses.  The mantissa
@@ -121,7 +134,7 @@ def _reduce_large(x: torch.Tensor):
     pi/2 * 2^-62, as glibc does.  For x < 0 the pair is that of |x|
     negated, which is how glibc's sign handling comes out."""
     xi = x.view(torch.int32).to(torch.int64) & _M32
-    tab = torch.tensor(_INV_PIO4, dtype=torch.int64, device=x.device)
+    tab = _inv_pio4(x.device)
     j = (xi >> 26) & 15
     m = ((xi & 0xFFFFFF) | 0x800000) << ((xi >> 23) & 7)    # < 2^31
     res0 = (m * tab[j]) & _M32            # a uint32 product in C

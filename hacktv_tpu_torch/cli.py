@@ -13,8 +13,13 @@ RATE, -l LEVEL, -D DEVIATION, -G GAMMA, --fm-energy-dispersal, -i,
 services --teletext PATH, --wss MODE, --vits, --vitc, --cc608, --acp and
 --sis MODE, the scramblers --videocrypt MODE, --videocrypt2 MODE,
 --videocrypts MODE, --syster MODE, --systercnr MODE, --d11 MODE,
---key-table-1, --key-table-2 and --systeraudio, -t TYPE, -o FILE, --frames N, --seconds S,
---frames-per-block N, --device {cuda,cpu} and the input `test`.
+--key-table-1, --key-table-2 and --systeraudio, the D/D2-MAC switches
+--single-cut, --double-cut, --eurocrypt MODE, --ec-mat-rating N, --ec-ppv
+[PPV], --nodate, --showecm, --scramble-audio, --chid ID and
+--mac-audio-{stereo,mono,high-quality,medium-quality,companded,linear,
+l1-protection,l2-protection}, -t TYPE, -o FILE, --frames N, --seconds S,
+--frames-per-block N, --device {cuda,cpu} and the input `test`.  The MAC
+modes run video/mac.py's MacEncoder.
 HACKTV_TPU_TELETEXT_TIME=<unix seconds> fixes the teletext clock, as for
 hacktv_tpu, so that a run is deterministic.  The output goes through the
 native runtime's threaded file sink (runtime.NativeFileSink), built at
@@ -104,6 +109,32 @@ def _build_parser() -> argparse.ArgumentParser:
       help="Syster cut-and-rotate, alone or with --syster")
     a("--systeraudio", action="store_true",
       help="Syster audio spectrum inversion")
+    a("--single-cut", action="store_true",
+      help="MAC: single-cut line rotation")
+    a("--double-cut", action="store_true",
+      help="MAC: double-cut line rotation")
+    a("--eurocrypt", default=None, metavar="MODE",
+      help="MAC: Eurocrypt conditional access (filmnet, tv2, ctv, ...)")
+    a("--ec-mat-rating", type=int, default=0,
+      help="Eurocrypt maturity rating")
+    a("--ec-ppv", default=None, nargs="?", const="0,0",
+      help="Eurocrypt pay-per-view: programme number and cost")
+    a("--nodate", action="store_true",
+      help="Eurocrypt: leave the date out of the ECMs")
+    a("--showecm", action="store_true",
+      help="print Eurocrypt ECM/EMM details to stderr")
+    a("--scramble-audio", action="store_true",
+      help="MAC: scramble the audio packets")
+    a("--chid", type=lambda x: int(x, 0), default=None,
+      help="MAC: the channel ID")
+    a("--mac-audio-stereo", action="store_true")
+    a("--mac-audio-mono", action="store_true")
+    a("--mac-audio-high-quality", action="store_true")
+    a("--mac-audio-medium-quality", action="store_true")
+    a("--mac-audio-companded", action="store_true")
+    a("--mac-audio-linear", action="store_true")
+    a("--mac-audio-l1-protection", action="store_true")
+    a("--mac-audio-l2-protection", action="store_true")
     a("-t", "--type", default="int16",
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
     a("--frames", type=int, default=0,
@@ -158,6 +189,24 @@ def _apply_overrides(conf, args):
         kw["secam_field_id"] = True
     if args.secam_field_id_lines is not None:
         kw["secam_field_id_lines"] = args.secam_field_id_lines
+    if args.chid is not None:
+        kw["chid"] = args.chid
+    if args.mac_audio_mono:
+        kw["mac_audio_stereo"] = False
+    if args.mac_audio_stereo:
+        kw["mac_audio_stereo"] = True
+    if args.mac_audio_medium_quality:
+        kw["mac_audio_quality"] = False
+    if args.mac_audio_high_quality:
+        kw["mac_audio_quality"] = True
+    if args.mac_audio_linear:
+        kw["mac_audio_companded"] = False
+    if args.mac_audio_companded:
+        kw["mac_audio_companded"] = True
+    if args.mac_audio_l2_protection:
+        kw["mac_audio_protection"] = True
+    if args.mac_audio_l1_protection:
+        kw["mac_audio_protection"] = False
     return replace(conf, **kw) if kw else conf
 
 
@@ -167,6 +216,11 @@ def _check_services(args, conf) -> None:
     if (args.videocrypt or args.videocrypt2) and \
             conf.colour_mode not in (ColourMode.PAL, ColourMode.MONOCHROME):
         raise SystemExit("videocrypt requires a PAL mode")
+    if args.single_cut or args.double_cut:
+        if conf.mac_mode is None:
+            raise SystemExit("single/double cut requires a MAC mode")
+    if args.eurocrypt and conf.mac_mode is None:
+        raise SystemExit("eurocrypt requires a MAC mode")
     if args.a2stereo and conf.mac_mode is not None:
         raise SystemExit("a2stereo is not available for MAC modes")
     scramblers = [s for s in (args.videocrypt, args.videocrypt2,
@@ -212,6 +266,9 @@ def _check_services(args, conf) -> None:
                          "and 525 line raster modes")
     if args.sis and conf.lines != 625:
         raise SystemExit("SiS is only available with 625 line modes")
+    if (args.ec_mat_rating or args.ec_ppv) and not args.eurocrypt:
+        raise SystemExit("Maturity rating / PPV options are only used "
+                         "in conjunction with Eurocrypt")
 
 
 def main(argv=None) -> int:
@@ -252,30 +309,11 @@ def main(argv=None) -> int:
     if fpb <= 0:
         fpb = min(16, frames) if frames else 16
 
-    tt_clock = None
-    if os.environ.get("HACKTV_TPU_TELETEXT_TIME"):
-        tt_time = int(os.environ["HACKTV_TPU_TELETEXT_TIME"])
-        tt_clock = lambda: tt_time
-
-    from .encoder import Encoder
     from .runtime import NativeFileSink
-    enc = Encoder(conf, sample_rate, pixel_rate, frames_per_block=fpb,
-                  teletext=args.teletext, teletext_clock=tt_clock,
-                  wss=args.wss, vits=args.vits, vitc=args.vitc,
-                  cc608=args.cc608, acp=args.acp, sis=args.sis,
-                  videocrypt=args.videocrypt, videocrypt2=args.videocrypt2,
-                  videocrypts=args.videocrypts, syster=args.syster,
-                  systercnr=args.systercnr,
-                  syster_key_table=(1 if args.key_table_1 else
-                                    2 if args.key_table_2 else 0),
-                  d11=args.d11, systeraudio=args.systeraudio,
-                  vfilter=args.vfilter, a2stereo=args.a2stereo,
-                  offset=int(args.offset), swap_iq=args.swap_iq,
-                  passthru=args.passthru, raw_bb_file=args.raw_bb_file,
-                  raw_bb_blanking=args.raw_bb_blanking,
-                  raw_bb_white=args.raw_bb_white,
-                  secam_exact=True if args.secam_exact else None,
-                  device=args.device)
+    if conf.mac_mode is not None:
+        enc = _mac_encoder(args, conf, sample_rate, pixel_rate, fpb)
+    else:
+        enc = _encoder(args, conf, sample_rate, pixel_rate, fpb)
     target = args.output[5:] if args.output.startswith("file:") \
         else args.output
     sink = NativeFileSink(target, args.type, enc.complex_out)
@@ -303,6 +341,49 @@ def main(argv=None) -> int:
     finally:
         sink.close()
     return 0
+
+
+def _mac_encoder(args, conf, sample_rate, pixel_rate, fpb):
+    """The D/D2-MAC encoder the switches ask for (hacktv_tpu's MAC
+    dispatch; its teletext keeps the wall clock, as there)."""
+    from .video.mac import MacEncoder
+    ec = None
+    if args.eurocrypt:
+        from .services.eurocrypt import Eurocrypt
+        ec = Eurocrypt(args.eurocrypt, mat_rating=args.ec_mat_rating,
+                       ppv=args.ec_ppv, nodate=args.nodate,
+                       showecm=args.showecm)
+    scr = 2 if args.double_cut else (1 if args.single_cut else 0)
+    return MacEncoder(conf, sample_rate, pixel_rate, frames_per_block=fpb,
+                      scramble_video=scr,
+                      scramble_audio=args.scramble_audio, eurocrypt=ec,
+                      teletext=args.teletext, device=args.device)
+
+
+def _encoder(args, conf, sample_rate, pixel_rate, fpb):
+    """The raster encoder with the services the switches ask for."""
+    from .encoder import Encoder
+    tt_clock = None
+    if os.environ.get("HACKTV_TPU_TELETEXT_TIME"):
+        tt_time = int(os.environ["HACKTV_TPU_TELETEXT_TIME"])
+        tt_clock = lambda: tt_time
+    return Encoder(conf, sample_rate, pixel_rate, frames_per_block=fpb,
+                   teletext=args.teletext, teletext_clock=tt_clock,
+                   wss=args.wss, vits=args.vits, vitc=args.vitc,
+                   cc608=args.cc608, acp=args.acp, sis=args.sis,
+                   videocrypt=args.videocrypt, videocrypt2=args.videocrypt2,
+                   videocrypts=args.videocrypts, syster=args.syster,
+                   systercnr=args.systercnr,
+                   syster_key_table=(1 if args.key_table_1 else
+                                     2 if args.key_table_2 else 0),
+                   d11=args.d11, systeraudio=args.systeraudio,
+                   vfilter=args.vfilter, a2stereo=args.a2stereo,
+                   offset=int(args.offset), swap_iq=args.swap_iq,
+                   passthru=args.passthru, raw_bb_file=args.raw_bb_file,
+                   raw_bb_blanking=args.raw_bb_blanking,
+                   raw_bb_white=args.raw_bb_white,
+                   secam_exact=True if args.secam_exact else None,
+                   device=args.device)
 
 
 if __name__ == "__main__":

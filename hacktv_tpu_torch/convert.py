@@ -34,7 +34,12 @@ the JAX package's service objects: `WSS.basis`, `bits` (its waveform row,
 `cols` and `seq`; `SysterCNR.basis`, `cols`, `seq`; `D11.basis`,
 `table`.  DANCE's pulse matrices and carrier LUTs go under
 `dance_statics.` + `pulse`, `lut_i`, `lut_q` (its two-part split of the
-pulse is made again from `pulse` when installed).
+pulse is made again from `pulse` when installed).  A D/D2-MAC encoder
+(video/mac.py's MacEncoder) carries the duobinary bases under `mac.` +
+`Bm`, `B0`, `Bp` (f32 [nbits, W], integer-valued; f64 on the device)
+and, where it assembles the line bits on the device, the base bit rows
+`mac.base_bits` (int8 [2 * 625, nbits]): the JAX MacEncoder's `Bm`,
+`B0`, `Bp` and `_base_bits`.
 
     arrays = statics_to_numpy(enc)          # {name: np.ndarray}
     statics_from_numpy(other_enc, arrays)   # installs them on its device
@@ -59,10 +64,22 @@ A2_FIELDS = ("cos1_x", "sin1_x", "cos2_x", "sin2_x")
 OFFSET_FIELDS = ("cos_x", "sin_x", "intro_bi", "intro_bq")
 FM_EXACT_ATTRS = ("fm_exact", "fm_video_exact")
 RESAMPLER_FIELDS = ("Td", "offq", "offr")
+MAC_BASES = ("Bm", "B0", "Bp")
+
+
+def _is_mac(enc) -> bool:
+    """A MacEncoder (its statics are the bases, not the raster's)."""
+    from .video.mac import MacEncoder
+    return isinstance(enc, MacEncoder)
 
 
 def statics_to_numpy(enc) -> dict:
     """The encoder's device statics as host arrays."""
+    if _is_mac(enc):
+        out = {"mac." + f: getattr(enc, f) for f in MAC_BASES}
+        if enc._base_bits is not None:
+            out["mac.base_bits"] = enc._base_bits
+        return out
     host = lambda t: t.detach().cpu().numpy()
     out = {}
     for f in RASTER_FIELDS:
@@ -138,6 +155,13 @@ def statics_from_numpy(enc, arrays: dict) -> None:
     if set(arrays) != have:
         raise ValueError(f"statics mismatch: expected {sorted(have)}, "
                          f"got {sorted(arrays)}")
+    if _is_mac(enc):
+        for f in MAC_BASES:
+            setattr(enc, f, np.asarray(arrays["mac." + f], np.float32))
+        if "mac.base_bits" in arrays:
+            enc._base_bits = np.asarray(arrays["mac.base_bits"], np.int8)
+        enc.upload()
+        return
     dev = enc.device
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
     upd = {}

@@ -133,7 +133,10 @@ class Encoder:
                            offset=conf.offset or int(offset),
                            swap_iq=conf.swap_iq or swap_iq)
         if conf.mac_mode is not None:
-            raise NotImplementedError("MAC modes are not ported yet")
+            # the packet-multiplex raster has its own encoder
+            raise ValueError(f"{conf.mac_mode.name}-MAC modes take "
+                             "video.mac.MacEncoder; create_encoder picks "
+                             "it by mode")
         self.conf = conf
         self.params = VideoParams.create(conf, sample_rate, pixel_rate)
         self.frames_per_block = frames_per_block

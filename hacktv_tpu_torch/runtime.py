@@ -7,8 +7,12 @@ recurrence), the SECAM host-exact chroma kernels (`rt_fir_block_i16`,
 `rt_iir1_exact_i16`, `rt_secam_carrier_exact`, called from
 video/secam.py), the scramblers' PRBS recurrences (`vc_clock16`, the
 Videocrypt cut bytes, and `ng_event`, the Syster shuffle's PRBS event and
-permutation, called from services/) and the threaded file sink
-(`NativeFileSink`).
+permutation, called from services/), the MAC host coders (`rt_mac_prbs1`
+and `rt_mac_prbs2`, the CA keystreams, and `rt_mac_encode_packet`, called
+from ops/mac_bits.py; `rt_mac_audio_blocks`, the sound coding blocks,
+from audio/mac_audio.py; `rt_mac_mux_replay_packed` and
+`rt_mac_materialize_packed`, the packet multiplex and the line bits, from
+video/mac.py) and the threaded file sink (`NativeFileSink`).
 
 The library is compiled from the repo's `native/hacktv_rt.cpp` with g++
 (the flags of native/Makefile) into `hacktv_tpu_torch/_build/` at first
@@ -113,6 +117,24 @@ def _declare(lib) -> None:
     lib.rt_vc_clock16.argtypes = [p, c.c_long, p]
     lib.rt_ng_event.restype = None
     lib.rt_ng_event.argtypes = [p, p, p]
+    for name in ("rt_mac_prbs1", "rt_mac_prbs2"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [p, c.c_long, p]
+    lib.rt_mac_encode_packet.restype = None
+    lib.rt_mac_encode_packet.argtypes = [c.c_int, c.c_int, p, c.c_int,
+                                         c.c_uint64, p]
+    lib.rt_mac_audio_blocks.restype = None
+    lib.rt_mac_audio_blocks.argtypes = [
+        p, c.c_long, c.c_long, c.c_int, c.c_int, c.c_int, p, c.c_int,
+        c.c_int, p, p, p, p, p]
+    lib.rt_mac_mux_replay_packed.restype = None
+    lib.rt_mac_mux_replay_packed.argtypes = [
+        c.c_long, p, p, p, p, p, p, p, p, p, p, p, p, c.c_int64, p,
+        c.c_int64, p, p, c.c_int]
+    lib.rt_mac_materialize_packed.restype = None
+    lib.rt_mac_materialize_packed.argtypes = [
+        c.c_long, c.c_long, c.c_long, p, p, c.c_int, p, p, p, p, p, p, p,
+        p, c.c_int]
     lib.rt_file_sink_open.restype = p
     lib.rt_file_sink_open.argtypes = [c.c_char_p, c.c_int, c.c_int,
                                       c.c_size_t]

@@ -7,7 +7,8 @@ work (page rings, parallel-mode magazine scheduling with the 20 ms
 header-to-row rule, Hamming 8/4 + odd parity + page CRC, fastext links,
 packet 8/30 clock) runs on the host; the waveform is rendered on the
 device as bits @ raised-cosine basis at 444xfH (16 VBI lines per field,
-lines 7-22 / 320-335).
+lines 7-22 / 320-335).  `MacTeletext` feeds the same packets into the
+D/D2-MAC line bits instead (video/mac.py).
 
 The clock source is injectable so output can be made deterministic for
 testing; the reference uses wall time (src/teletext.c:605, 1183).
@@ -455,6 +456,25 @@ def load_tti(service: TeletextService, filename: str):
     flush()
 
 
+def _open_source(service: TeletextService, path: str):
+    """Load the pages of `path` (a .tti file or a directory of them) into
+    `service`; for `raw:FILE` (or `raw:-`, standard input) of 42-byte
+    packets, the open stream instead, else None."""
+    if path.startswith("raw:"):
+        return (sys.stdin.buffer if path[4:] == "-"
+                else open(path[4:], "rb"))
+    if os.path.isdir(path):
+        for name in sorted(os.listdir(path)):
+            if not name.startswith("."):
+                try:
+                    load_tti(service, os.path.join(path, name))
+                except ValueError:
+                    pass
+    else:
+        load_tti(service, path)
+    return None
+
+
 class Teletext:
     """Batch-encoder service wrapper."""
 
@@ -470,20 +490,8 @@ class Teletext:
         self.service = TeletextService(p.conf.lines,
                                        round(float(p.conf.frame_rate)),
                                        clock)
-        self.raw = None
+        self.raw = _open_source(self.service, path)
         self._raw_eof = [False]
-        if path.startswith("raw:"):
-            self.raw = (sys.stdin.buffer if path[4:] == "-"
-                        else open(path[4:], "rb"))
-        elif os.path.isdir(path):
-            for name in sorted(os.listdir(path)):
-                if not name.startswith("."):
-                    try:
-                        load_tti(self.service, os.path.join(path, name))
-                    except ValueError:
-                        pass
-        else:
-            load_tti(self.service, path)
         # The scheduler is stateful per stream line; consecutive blocks
         # overlap on the halo lines, so packets are cached by absolute
         # line index and reused on the second visit.
@@ -547,3 +555,29 @@ class Teletext:
     def apply(self, out, arrays, lut=None):
         bits = vbidata.device_unpack_bits(arrays["packed"], 360)
         return out + vbidata.render(bits, self.d_basis)
+
+
+class MacTeletext:
+    """Teletext packet feed for D/D2-MAC lines (src/mac.c:1556-1602):
+    the same TTI service/scheduler, but packets are packed into the MAC
+    line bit buffer instead of a VBI waveform."""
+
+    def __init__(self, path: str, lines_per_frame: int = 625,
+                 frame_rate: int = 25, clock=None):
+        self.lines_total = lines_per_frame
+        self.service = TeletextService(lines_per_frame, frame_rate, clock)
+        self.raw = _open_source(self.service, path)
+        self._raw_eof = [False]
+
+    def next_vbi_bits(self, frame: int, line: int) -> np.ndarray | None:
+        """360 bits (LSB-first per byte) of the next 45-byte packet, or
+        None when no packet is ready."""
+        timecode = (frame - 1) * self.lines_total + line - 1
+        if self.raw is not None:
+            pkt = _read_raw_packet(self.raw, self._raw_eof)
+        else:
+            pkt = self.service.next_packet(timecode)
+        if pkt is None:
+            return None
+        return np.unpackbits(np.frombuffer(bytes(pkt), np.uint8),
+                             bitorder="little")[:360]

@@ -78,10 +78,11 @@ def render(bits: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
                         basis.to(torch.float64)).to(torch.float32)
 
 
-def device_unpack_bits(packed: torch.Tensor, nbits: int) -> torch.Tensor:
-    """uint8 [B, nbytes] (LSB-first) -> f32 [B, nbits] on the device.  Bit
-    rows travel host -> device packed (a [B, 360] f32 teletext block is
-    8 times the bytes)."""
+def device_unpack_bits(packed: torch.Tensor, nbits: int,
+                       dtype=torch.float32) -> torch.Tensor:
+    """uint8 [B, nbytes] (LSB-first) -> `dtype` [B, nbits] on the device.
+    Bit rows travel host -> device packed (a [B, 360] f32 teletext block
+    is 8 times the bytes)."""
     sh = torch.arange(8, dtype=torch.uint8, device=packed.device)
     bits = (packed[:, :, None] >> sh) & 1
-    return bits.reshape(packed.shape[0], -1)[:, :nbits].to(torch.float32)
+    return bits.reshape(packed.shape[0], -1)[:, :nbits].to(dtype)

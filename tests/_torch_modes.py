@@ -28,8 +28,9 @@ SWEEP_C = ["pal-k", "k", "secam-b", "secam-g", "secam-i", "e", "819",
 # accepted modes held by other files at their own rates
 HELD_ELSEWHERE = ["i", "g", "pal", "m", "secam", "l", "d", "a", "pal-fm",
                   "ntsc-fm", "secam-fm", "ntsc-bs"]
-# the modes that still raise: MAC
-REFUSED = ["d2mac-fm", "d2mac-am", "d2mac", "dmac-fm", "dmac-am", "dmac"]
+# the D/D2-MAC modes: video/mac.py's MacEncoder, held by
+# tests/test_torch_mac_encoder_*.py (Encoder refuses them)
+MAC = ["d2mac-fm", "d2mac-am", "d2mac", "dmac-fm", "dmac-am", "dmac"]
 BLOCKS = 2
 
 

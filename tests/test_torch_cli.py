@@ -2,8 +2,10 @@
 equals Encoder.encode_block byte for byte, PAL-I with NICAM included, and
 the JAX package's command line byte for byte on each switch that changes
 the mode's configuration, S-Video and --pixelrate among them, and on
-each scrambler switch and ntsc-bs; the scramblers' checks exit with the
-JAX command line's messages; it refuses what it does not cover."""
+each scrambler switch and ntsc-bs, and on the D/D2-MAC switches
+(Eurocrypt, the cuts, scrambled audio, the MAC audio modes); the
+scramblers' and MAC's checks exit with the JAX command line's messages;
+it refuses what it does not cover."""
 
 from __future__ import annotations
 
@@ -87,8 +89,8 @@ def test_cli_noaudio_and_type(tmp_path):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (["--eurocrypt", "filmnet"], SystemExit),   # switch not in the subset
-    (["-m", "d2mac-fm"], NotImplementedError),  # MAC
+    (["--eurocrypt", "filmnet"], SystemExit),   # without a MAC mode
+    (["-m", "d2mac-fm", "clip.mp4"], NotImplementedError),  # MAC input
     (["-m", "pal", "clip.mp4"], NotImplementedError),
 ])
 def test_cli_refuses(argv, exc, tmp_path):
@@ -245,6 +247,52 @@ def test_cli_scramblers_match_jax_cli(tmp_path, argv):
 ], ids=lambda a: "".join(a[1:6]))
 def test_cli_scrambler_exits_match_jax(tmp_path, argv):
     """The JAX command line's scrambler checks: the same exit message."""
+    msgs = []
+    for main in (cli.main, jcli.main):
+        with pytest.raises(SystemExit) as e:
+            main(argv + ["--frames", "1", "-o", str(tmp_path / "x.bin"),
+                         "test"] + (["--device", "cpu"]
+                                    if main is cli.main else []))
+        msgs.append(str(e.value.code))
+    assert msgs[0] == msgs[1] and msgs[0]
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "d2mac-fm", "--eurocrypt", "ctv"],
+    ["-m", "dmac", "--double-cut", "--scramble-audio"],
+    ["-m", "d2mac-am", "--mac-audio-mono"],
+    ["-m", "d2mac", "--single-cut", "--eurocrypt", "tv2", "--nodate",
+     "--ec-mat-rating", "13", "--chid", "0x1234", "--mac-audio-linear",
+     "--mac-audio-l2-protection", "--mac-audio-medium-quality"],
+], ids=lambda a: "".join(a[1:5]))
+def test_cli_mac_matches_jax_cli(tmp_path, argv):
+    """The D/D2-MAC switches: the port's and the JAX package's command
+    lines write the same bytes over two one-frame blocks at 20.25 MS/s
+    (ctv and tv2 have fixed broadcast dates; the current day is read from
+    the clock by both, back to back)."""
+    tc.jax_runtime()
+    tail = ["-s", "20250000", "--frames-per-block", "1", "--frames", "2"]
+    out_t, out_j = tmp_path / "t.bin", tmp_path / "j.bin"
+    assert cli.main(argv + tail + ["--device", "cpu", "-o", str(out_t),
+                                   "test"]) == 0
+    assert jcli.main(argv + tail + ["-o", str(out_j), "test"]) == 0
+    got, ref = out_t.read_bytes(), out_j.read_bytes()
+    assert len(got) == len(ref) > 0
+    ndiff = np.count_nonzero(np.frombuffer(got, np.int16)
+                             != np.frombuffer(ref, np.int16))
+    assert got == ref, f"{ndiff} samples differ"
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "pal", "--single-cut"],
+    ["-m", "i", "--double-cut"],
+    ["-m", "pal", "--eurocrypt", "filmnet"],
+    ["-m", "d2mac", "--ec-mat-rating", "13"],
+    ["-m", "d2mac", "--ec-ppv"],
+    ["-m", "d2mac-fm", "--a2stereo"],
+], ids=lambda a: "".join(a[1:4]))
+def test_cli_mac_exits_match_jax(tmp_path, argv):
+    """The JAX command line's MAC checks: the same exit message."""
     msgs = []
     for main in (cli.main, jcli.main):
         with pytest.raises(SystemExit) as e:

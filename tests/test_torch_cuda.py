@@ -5,8 +5,10 @@ the AM carrier, the A2 pilot phase, FM video's closed form, the offset
 rotation, the video resampler, the VBI services' render under TF32 and
 the encoder (the legacy raster modes, S-Video, --pixelrate, the VBI
 services, the scramblers and DANCE among its configurations), DANCE's
-two-part pulse product under TF32 and the scramblers' applies on the card
-against their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
+two-part pulse product under TF32, the scramblers' applies and the
+D/D2-MAC encoders (their f64 duobinary products with TF32 on and off,
+the cuts, Eurocrypt, teletext, the resampler, the pipelined multiplex) on
+the card against their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -504,3 +506,81 @@ def test_scrambler_applies_card_match_cpu(cuda, name):
                        arrays_to_device(ag, cuda)).cpu()
         ref = sc.apply(torch.as_tensor(block), arrays_to_device(ac, "cpu"))
         assert torch.equal(got, ref), type(sg).__name__
+
+
+MAC_CASES = {
+    "d2mac": ("d2mac", {}),
+    "d2mac-am-dcut": ("d2mac-am", {"scramble_video": 2}),
+    "dmac-fm": ("dmac-fm", {}),
+    "dmac-scut-audio": ("dmac", {"scramble_video": 1,
+                                 "scramble_audio": True}),
+    "d2mac-fm-ec": ("d2mac-fm", {"eurocrypt": "filmnet",
+                                 "scramble_audio": True}),
+    "d2mac-teletext": ("d2mac", {"teletext": os.path.join(TT_DATA,
+                                                          "demo.tti"),
+                                 "teletext_clock": _tt_clock}),
+    "d2mac-pixelrate": ("d2mac", {"pixel_rate": 13_500_000}),
+    "dmac-pipelined": ("dmac-am", {"pipeline_mux": True}),
+}
+
+
+def _mac(mode, kw, device, fpb=1):
+    from hacktv_tpu_torch.services.eurocrypt import Eurocrypt
+    from hacktv_tpu_torch.video.mac import MacEncoder
+    kw = dict(kw)
+    if "eurocrypt" in kw:
+        kw["eurocrypt"] = Eurocrypt(kw["eurocrypt"], now=1_200_000_000)
+    return MacEncoder(mode, 20_250_000, frames_per_block=fpb,
+                      device=device, **kw)
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+@pytest.mark.parametrize("name", sorted(MAC_CASES))
+def test_mac_card_matches_cpu(cuda, name, tf32):
+    """Each MAC configuration, one-frame blocks 0-3, card against CPU,
+    with TF32 on and off: the f64 duobinary products are exact either
+    way."""
+    mode, kw = MAC_CASES[name]
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        _card_vs_cpu(cuda, name, lambda d: _mac(mode, kw, d), 4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.parametrize("mode", ["d2mac-fm", "dmac"])
+def test_mac_64_frame_blocks_card_match_cpu(cuda, mode):
+    """64-frame blocks 0-1 (the shapes chip_smoke.py runs), TF32 on,
+    card against CPU."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _card_vs_cpu(cuda, mode, lambda d: _mac(mode, {}, d, fpb=64), 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def test_mac_products_card_exact(cuda):
+    """The duobinary products on the card with TF32 on equal the CPU's
+    and the f32 products on the CPU; one-part f32 products under TF32
+    would round."""
+    from hacktv_tpu_torch.video import mac as tmac
+    t = tmac.MacEncoder("d2mac", 20_250_000, device=cuda)
+    rng = np.random.default_rng(4)
+    bits = rng.integers(0, 2, (4098, t.mux.nbits))
+    sym = torch.as_tensor(bits * rng.choice([-1, 1], (4098, 1)),
+                          dtype=torch.float64)
+    ref = tmac.duobinary_products(tuple(b.cpu() for b in t.d_bases), sym)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = tmac.duobinary_products(t.d_bases, sym.to(cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    s32 = sym.float()
+    f32 = [torch.as_tensor(B) for B in (t.Bm, t.B0, t.Bp)]
+    plain = (s32[1:4097] @ f32[1] + s32[0:4096] @ f32[2],
+             s32[2:4098] @ f32[0])
+    for g, r, p in zip(got, ref, plain):
+        assert torch.equal(g.cpu(), r) and torch.equal(r, p)

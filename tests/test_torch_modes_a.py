@@ -15,16 +15,21 @@ def test_mode_matches_jax(mode):
 
 
 def test_sweep_covers_every_accepted_mode():
-    """The registry's 50 modes: 44 run in the port (each held by one of
-    the sweep files or by another test file; ntsc-bs by
-    tests/test_torch_dance.py), and only the six MAC modes still raise
-    NotImplementedError."""
-    from hacktv_tpu_torch import Encoder
+    """The registry's 50 modes all run in the port: 44 through Encoder
+    (each held by one of the sweep files or by another test file;
+    ntsc-bs by tests/test_torch_dance.py), and the six MAC modes through
+    video/mac.py's MacEncoder (tests/test_torch_mac_encoder_*.py), which
+    create_encoder picks for them; Encoder refuses them with
+    ValueError."""
+    from hacktv_tpu_torch import Encoder, create_encoder
     from hacktv_tpu_torch.config.standards import REGISTRY
+    from hacktv_tpu_torch.video.mac import MacEncoder
     swept = tm.SWEEP_A + tm.SWEEP_B + tm.SWEEP_C
     held = swept + tm.HELD_ELSEWHERE
     assert len(held) == len(set(held)) == 44
-    assert sorted(held + tm.REFUSED) == sorted(REGISTRY)
-    for mode in tm.REFUSED:
-        with pytest.raises(NotImplementedError):
+    assert sorted(held + tm.MAC) == sorted(REGISTRY)
+    for mode in tm.MAC:
+        with pytest.raises(ValueError, match="MacEncoder"):
             Encoder(mode, 20_250_000, device="cpu")
+        enc = create_encoder(mode, 20_250_000, device="cpu")
+        assert isinstance(enc, MacEncoder)
