@@ -27,7 +27,11 @@ Sky's Videocrypt decoders), l-syster-vsb (Encoder("l", 16 MS/s, --filter,
 syster="premiere-fa", systeraudio=True): Canal+ France, Nagravision
 Syster on SECAM-L with the sound inverted) and ntsc-bs
 (Encoder("ntsc-bs", 16 MS/s): Japan's BS satellite, FM video with DANCE
-digital sound); and the D/D2-MAC paths (video/mac.py MacEncoder at 20.25
+digital sound); i-moving-vsb (Encoder("i", 16 MS/s, --filter) on moving
+video: a 720x576 RGB32 file of 130 frames the script writes from a seed
+into a temporary directory, with its .pcm sound and .cc608 captions,
+read as the CLI reads `raw:FILE:720x576` with --repeat, each frame
+stretched to 832x576; deleted at the end); and the D/D2-MAC paths (video/mac.py MacEncoder at 20.25
 MS/s, W = 1296): d2mac-fm-ec (MacEncoder("d2mac-fm", eurocrypt=Eurocrypt(
 "filmnet"), scramble_audio=True): European DBS satellite of the 1990s,
 D2-MAC with Eurocrypt M, single cut), dmac-fm (MacEncoder("dmac-fm"):
@@ -87,7 +91,12 @@ Phases, one line each (any failure exits non-zero before the result):
      block time to the card's end; for FM video on the host, to the end
      of its collect_block, where the FM recurrence runs), with every
      kernel's launch count set to 0 just before a path and read just
-     after;
+     after; for pal-i-vsb and i-moving-vsb one more block under
+     torch.profiler (its device ms, the card's idle share of the median
+     block) and the step alone by CUDA events, and for i-moving-vsb the
+     LUT's build and upload, a frame's read and fit, the 66-frame
+     stack and upload and the card's conversion and gather (int32 and
+     int64 indices);
   10. the card against the port's CPU path, one-frame blocks 0-3 of each
      path and of SECAM composite, SECAM-L (device and host-exact
      chroma), 405-line system A (AM sound), NTSC-M with A2 at 13.5135
@@ -108,11 +117,20 @@ Phases, one line each (any failure exits non-zero before the result):
      medium-quality linear audio, 13.5 MHz pixels, a moving source in
      two-frame blocks, the pipelined multiplex), each with TF32 off and
      on: byte-identical required;
- 11. the command line, 4 frames each of -m i, -m i --filter with
+ 11. moving: the LUT gather of one block's 66 frames against the host
+     conversion, i-moving-vsb in 4-frame blocks against one-frame blocks,
+     and eight moving configurations (i --filter, pal, l --filter, pal-fm,
+     i --pixelrate, pal --s-video, ntsc --cc608 from the side-car,
+     D2-MAC FM in two-frame blocks) card against CPU, blocks 0-3;
+     checkpoint: seven e2e paths at 4 frames a block checkpointed at
+     block 2 on the card and resumed on the card and on the CPU, blocks
+     2-3 against the continuous run (0 differing values required);
+ 12. the command line, 4 frames each of -m i, -m i --filter with
      teletext, WSS, VITS and VITC, -m pal-fm --filter, -m pal --s-video
      --filter, -m i --pixelrate 14750000, -m i --filter --videocrypt
      free, -m ntsc-bs, -m d2mac-fm --eurocrypt ctv and -m dmac
-     --double-cut to files through the native sink.
+     --double-cut, and 128 frames of the moving file with -m i --filter
+     (and --letterbox), to files through the native sink.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -254,6 +272,33 @@ MAC_CPU_PATHS = {**MAC_PATHS,
                  "dmac-fm-pipelined": ("dmac-fm", MAC_RATE,
                                        {"pipeline_mux": True})}
 EUROCRYPT_TIME = 1_200_000_000
+# the moving path: a raw RGB32 file of MOTION_FRAMES seeded 720x576 frames
+# (a shifted gradient with noise, saturated bands on top) with its .pcm
+# sound and .cc608 captions, written into a temporary directory, each
+# frame stretched to the mode's active picture and the file looped: the
+# CLI's input chain for `raw:FILE:720x576`
+MOTION_FRAMES = 130
+MOTION_SIZE = (720, 576)
+MOTION_SEED = 2024
+MOTION = {}                    # "path": the file, while the run lasts
+MOVING_PATHS = {"i-moving-vsb": ("i", 16_000_000, True, {})}
+# the moving phase: card against CPU on the moving file, MOVING_FPB-frame
+# blocks 0-3 (SECAM on one frame a block, glibc's large sin/cos)
+MOVING_FPB = 4
+MOVING_CPU_PATHS = {
+    "i-filter": ("i", 16_000_000, True, {}),
+    "pal": ("pal", 16_000_000, False, {}),
+    "l-filter": ("l", 16_000_000, True, {}),
+    "pal-fm": ("pal-fm", 20_250_000, False, {}),
+    "i-pixelrate": ("i", 16_000_000, False, {"pixel_rate": 14_750_000}),
+    "pal-svideo": ("pal", 16_000_000, False, {"s_video": True}),
+    "ntsc-cc608": ("ntsc", 13_500_000, False, {"cc608": True})}
+# the checkpoint phase: these e2e paths at MOVING_FPB frames a block
+CHECKPOINT_PATHS = ("pal-i", "secam-l-vsb", "pal-fm-preemph",
+                    "i-videocrypt-vsb", "i-sis", "pal-i-teletext-vsb",
+                    "d2mac-fm-ec")
+# the paths whose card step and idle share the e2e phase measures
+BUSY_PATHS = ("pal-i-vsb", "i-moving-vsb")
 # the scramble phase: the scrambled e2e paths and these
 SCRAMBLE_PATHS = ("i-videocrypt-vsb", "l-syster-vsb", "i-videocrypts",
                   "pal-syster-systercnr", "l-d11")
@@ -331,8 +376,14 @@ def build_mac(spec, device, source=None, frames_per_block=1):
 
 
 def make_path(path, device, frames_per_block):
-    """A PATHS or MAC_PATHS entry's encoder on seeded noise sound, with
-    its sample rate and whether it runs the video filter."""
+    """A PATHS or MAC_PATHS entry's encoder on seeded noise sound, or a
+    MOVING_PATHS entry's on the moving file, with its sample rate and
+    whether it runs the video filter."""
+    if path in MOVING_PATHS:
+        spec = MOVING_PATHS[path]
+        return (build(spec, device, motion_source(
+            spec[0], spec[1], spec[3].get("pixel_rate", 0)),
+            frames_per_block), spec[1], spec[2])
     if path in MAC_PATHS:
         spec = MAC_PATHS[path]
         return (build_mac(spec, device, mac_noise_source(spec),
@@ -340,6 +391,59 @@ def make_path(path, device, frames_per_block):
     spec = PATHS[path]
     return (build(spec, device, noise_source(spec), frames_per_block),
             spec[1], spec[2])
+
+
+def write_motion(dirname: str) -> str:
+    """The moving file: MOTION_FRAMES frames of 0xAARRGGBB pixels from
+    MOTION_SEED (a gradient shifted 8 pixels a frame, seeded noise, and
+    48 rows on top of one saturated colour a frame, cyan, green or
+    yellow, which take SECAM's carrier phase past 120 rad), its .pcm
+    side-car (seeded noise) and its .cc608 side-car (one pair a
+    frame)."""
+    rng = np.random.default_rng(MOTION_SEED)
+    w, h = MOTION_SIZE
+    x = np.arange(w, dtype=np.int64)[None, :]
+    y = np.arange(h, dtype=np.int64)[:, None]
+    bands = np.array([[0, 255, 255], [0, 255, 0], [255, 255, 0]], np.int64)
+    path = os.path.join(dirname, "motion.raw")
+    with open(path, "wb") as f:
+        for n in range(MOTION_FRAMES):
+            noise = rng.integers(0, 24, (3, h, w))
+            r = (x + 8 * n) % 232 + noise[0]
+            g = (y + 3 * n) % 232 + noise[1]
+            b = ((x + y) // 2 + 5 * n) % 232 + noise[2]
+            r[:48], g[:48], b[:48] = bands[n % 3]
+            px = (0xFF << 24) | (r << 16) | (g << 8) | b
+            f.write(px.astype(np.uint32).tobytes())
+    pairs = MOTION_FRAMES * 32000 // 25
+    rng.integers(-20000, 20000, (pairs, 2)).astype(np.int16).tofile(
+        path + ".pcm")
+    cc = np.array([[0x41 + n % 26, 0x61 + n % 26]
+                   for n in range(MOTION_FRAMES)], np.uint8)
+    cc.tofile(path + ".cc608")
+    return path
+
+
+def motion_source(mode, rate, pixel_rate=0):
+    """The moving file as the CLI reads `raw:FILE:720x576` with --repeat:
+    each frame stretched to the mode's active picture, the file
+    reopened at its end."""
+    from hacktv_tpu_torch.av.frame_ops import FitConfig, FitSource
+    from hacktv_tpu_torch.av.rawfile import RawFileSource
+    from hacktv_tpu_torch.av.sequence import SequenceSource
+    from hacktv_tpu_torch.config import get_mode
+    from hacktv_tpu_torch.video.mac import MacEncoder
+    from hacktv_tpu_torch.video.params import VideoParams
+    conf = get_mode(mode)
+    if conf.mac_mode is not None:
+        aw, al = MacEncoder.active_geometry(conf, rate, pixel_rate)
+    else:
+        aw = VideoParams.create(conf, rate, pixel_rate).active_width
+        al = conf.active_lines
+    cfg = FitConfig(aw, al, fit_mode="stretch")
+    spec = "{}:{}x{}".format(MOTION["path"], *MOTION_SIZE)
+    return SequenceSource([lambda: FitSource(RawFileSource(spec, aw, al),
+                                             cfg)], repeat=True)
 
 
 def mac_noise_source(spec):
@@ -471,7 +575,7 @@ def kernel_phase(sf, VideoParams, get_mode) -> list:
     from dataclasses import replace
     out = []
     gen = torch.Generator(device="cuda").manual_seed(2024)
-    for path, (mode, rate, vfilter, _) in PATHS.items():
+    for path, (mode, rate, vfilter, _) in {**PATHS, **MOVING_PATHS}.items():
         if not vfilter:
             continue
         p = VideoParams.create(replace(get_mode(mode), vfilter=True), rate, 0)
@@ -1016,6 +1120,7 @@ def e2e_phase(sf, path: str, profile_dir) -> dict:
     # there a block is timed to the end of its collection
     host_fm = getattr(enc, "fm_video_exact", None) is not None
     counts = (sf.fir_cplx, sf.fir_real)
+    torch.cuda.reset_peak_memory_stats()
     for c in counts:
         c.launches = 0
     for b in range(WARM_BLOCKS):
@@ -1066,11 +1171,182 @@ def e2e_phase(sf, path: str, profile_dir) -> dict:
             fail(f"{path}: {k} launched {v} times for {nblocks} blocks")
     if host_fm:
         fm_host_phase(enc, out)
-    if profile_dir:
+    if path in BUSY_PATHS:
+        busy_phase(enc, path, nblocks, statistics.median(block_s))
+    elif profile_dir:
         profile_block(enc, WARM_BLOCKS + TIMED_BLOCKS, path, profile_dir)
+    if path in MOVING_PATHS:
+        moving_host_phase(enc)
     del enc, out, host
     torch.cuda.empty_cache()
     return launches
+
+
+def busy_phase(enc, path: str, b: int, block_s: float) -> None:
+    """The card's busy and idle share of a block, and the card step
+    alone.  Block b under torch.profiler: the summed time of its device
+    activities (kernels and copies) against the median timed block, idle
+    = 1 - device / block; then block b + 1's step (_step) with its host
+    arguments prepared beforehand, by CUDA events: the card's work
+    without the host's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        enc.encode_block_device(b)
+        torch.cuda.synchronize()
+    dev = [e.time_range.elapsed_us() for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    device_ms = sum(dev) / 1e3
+    yuv = enc._device_rgb(b + 1)
+    m = enc._block_meta(b + 1)
+    args = enc._audio_args(b + 1)
+    step_ms = cuda_ms(lambda: enc._step(yuv, m, 1.0, args), 3)
+    phase("busy", path=path, device_ms=f"{device_ms:.2f}",
+          device_activities=len(dev), median_block_ms=f"{block_s * 1e3:.1f}",
+          idle_share=(f"{1 - device_ms / (block_s * 1e3):.3f}" if dev
+                      else "not measured"),
+          step_ms=f"{step_ms:.2f}", card=json.dumps(CARD["smi"]))
+
+
+def moving_host_phase(enc) -> None:
+    """The moving path's own parts: the LUT's build on the host and its
+    upload; one frame's read and fit (RawFileSource + FitSource, the
+    median over 33 frames); the stack of a block's 66 frames and its
+    upload; the card's conversion of that stack, and its gather alone
+    with int32 and with int64 indices (CUDA events)."""
+    from hacktv_tpu_torch.video import raster
+    p = enc.params
+    t = time.perf_counter()
+    lut = raster.make_yuv_lut(p)
+    lut_s = time.perf_counter() - t
+    t = time.perf_counter()
+    d_lut = torch.as_tensor(lut, device="cuda")
+    torch.cuda.synchronize()
+    lut_up_s = time.perf_counter() - t
+    src = motion_source("i", 16_000_000)
+    frame_s, frames = [], []
+    for f in range(enc._nf):
+        t = time.perf_counter()
+        frames.append(np.array(src.read_video(f), copy=True))
+        frame_s.append(time.perf_counter() - t)
+    src.close()
+    t = time.perf_counter()
+    stack = np.stack(frames)
+    stack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    d_stack = torch.as_tensor(stack, device="cuda")
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t
+
+    def index(rgb, dtype):
+        c = rgb.to(dtype)
+        return ((c[..., 0] << 16) | (c[..., 1] << 8) | c[..., 2]).reshape(-1)
+    idx32, idx64 = index(d_stack, torch.int32), index(d_stack, torch.int64)
+    g32 = cuda_ms(lambda: torch.index_select(d_lut, 0, idx32), 5)
+    g64 = cuda_ms(lambda: torch.index_select(d_lut, 0, idx64), 5)
+    conv = cuda_ms(lambda: raster.yuv_convert_device(d_lut, d_stack), 5)
+    phase("moving-host", frames=len(frames), pixels=int(idx32.numel()),
+          lut_build_s=f"{lut_s:.3f}", lut_upload_s=f"{lut_up_s:.3f}",
+          read_fit_ms_per_frame=f"{statistics.median(frame_s) * 1e3:.2f}",
+          stack_ms=f"{stack_s * 1e3:.1f}", upload_ms=f"{up_s * 1e3:.1f}",
+          upload_gb_per_s=f"{stack.nbytes / up_s / 1e9:.2f}",
+          gather_int32_ms=f"{g32:.3f}", gather_int64_ms=f"{g64:.3f}",
+          convert_ms=f"{conv:.3f}", card=json.dumps(CARD["smi"]))
+    del d_lut, d_stack, idx32, idx64
+    torch.cuda.empty_cache()
+
+
+def moving_phase() -> None:
+    """The moving file on the card: the LUT gather of one block's 66-frame
+    stack against the host conversion (rgb_to_yuv_host); i-moving-vsb at
+    MOVING_FPB frames a block against one frame a block, blocks 0-1; each
+    of MOVING_CPU_PATHS and D2-MAC FM (two-frame blocks) card against
+    the port's CPU path, blocks 0-3: 0 differing values required."""
+    from hacktv_tpu_torch.video import raster
+    from hacktv_tpu_torch.video.params import VideoParams
+    from hacktv_tpu_torch.config import get_mode
+    p = VideoParams.create(get_mode("i"), 16_000_000)
+    src = motion_source("i", 16_000_000)
+    stack = np.stack([np.array(src.read_video(f)) for f in range(FPB + 2)])
+    src.close()
+    lut = torch.as_tensor(raster.build_yuv_lut(p), device="cuda")
+    got = [a.cpu().numpy() for a in raster.yuv_convert_device(
+        lut, torch.as_tensor(stack, device="cuda"))]
+    diff = 0
+    for f0 in range(0, len(stack), 6):
+        ref = raster.rgb_to_yuv_host(p, stack[f0:f0 + 6])
+        diff += sum(int(np.count_nonzero(g[f0:f0 + 6] != r))
+                    for g, r in zip(got, ref))
+    phase("moving", check="lut-gather", frames=len(stack),
+          values=3 * stack[..., 0].size, differing=diff)
+    if diff:
+        fail("moving: the LUT gather differs from the host conversion")
+    del lut, got
+    torch.cuda.empty_cache()
+
+    spec = MOVING_PATHS["i-moving-vsb"]
+    enc4 = build(spec, "cuda", motion_source("i", 16_000_000), MOVING_FPB)
+    enc1 = build(spec, "cuda", motion_source("i", 16_000_000), 1)
+    a = np.concatenate([enc4.encode_block(b).reshape(-1) for b in range(2)])
+    r = np.concatenate([enc1.encode_block(b).reshape(-1)
+                        for b in range(2 * MOVING_FPB)])
+    nd = int(np.count_nonzero(a != r)) if a.shape == r.shape else -1
+    phase("moving", check=f"i-moving-vsb fpb={MOVING_FPB} vs fpb=1",
+          blocks=2, differing=nd, of=a.size)
+    if nd:
+        fail("moving: multi-frame blocks differ from one-frame blocks")
+    del enc4, enc1
+
+    cases = [(name, lambda d, s=spec: build(
+        s, d, motion_source(s[0], s[1], s[3].get("pixel_rate", 0)),
+        MOVING_FPB)) for name, spec in MOVING_CPU_PATHS.items()]
+    mspec = ("d2mac-fm", MAC_RATE, {})
+    cases.append(("d2mac-fm-moving-2f", lambda d: build_mac(
+        mspec, d, motion_source("d2mac-fm", MAC_RATE), 2)))
+    for name, make in cases:
+        g, c = make("cuda"), make("cpu")
+        for b in range(CPU_BLOCKS):
+            x = g.encode_block(b).astype(np.int64)
+            y = c.encode_block(b).astype(np.int64)
+            if x.shape != y.shape:
+                fail(f"moving {name} block {b}: shape {x.shape} != {y.shape}")
+            nd = int(np.count_nonzero(x != y))
+            phase("card-vs-cpu", path=f"moving-{name}", block=b,
+                  max_err=int(np.abs(x - y).max()), differing=nd, of=x.size)
+            if nd:
+                fail(f"moving {name} block {b}: card and CPU differ")
+        del g, c
+        torch.cuda.empty_cache()
+
+
+def checkpoint_phase() -> None:
+    """Each of CHECKPOINT_PATHS at MOVING_FPB frames a block: blocks 0-3
+    continuous on the card; a checkpoint at block 2 on the card, resumed
+    in a fresh card encoder and in a fresh CPU encoder: blocks 2-3 of both
+    equal the continuous run (0 differing samples required)."""
+    for path in CHECKPOINT_PATHS:
+        full = make_path(path, "cuda", MOVING_FPB)[0]
+        ref = [full.encode_block(b) for b in range(4)]
+        a = make_path(path, "cuda", MOVING_FPB)[0]
+        for b in range(2):
+            a.encode_block(b)
+        blob = a.checkpoint(2)
+        del full, a
+        for dev in ("cuda", "cpu"):
+            r = make_path(path, dev, MOVING_FPB)[0]
+            if r.load_checkpoint(blob) != 2:
+                fail(f"checkpoint {path}: resumed at the wrong block")
+            nd = sum(int(np.count_nonzero(r.encode_block(b) != ref[b]))
+                     for b in (2, 3))
+            phase("checkpoint", path=path, resumed_on=dev, blocks="2-3",
+                  bytes=len(blob), differing=nd)
+            if nd:
+                fail(f"checkpoint {path}: the resumed stream on {dev} "
+                     "differs")
+            del r
+        torch.cuda.empty_cache()
 
 
 def fm_host_phase(enc, out) -> None:
@@ -1234,6 +1510,33 @@ def cli_phase() -> None:
                 fail(f"cli {args} wrote only zeros")
 
 
+def moving_cli_phase() -> None:
+    """The moving file from the command line: 128 frames of PAL-I through
+    the VSB filter in 64-frame blocks, stretched and letterboxed, to a
+    file through the native sink; each checked for its byte count."""
+    spec = "raw:{}:{}x{}".format(MOTION["path"], *MOTION_SIZE)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "out.bin")
+        for extra in ([], ["--letterbox"]):
+            args = ["-m", "i", "--filter", "--frames-per-block", "64",
+                    "--frames", "128", *extra]
+            t = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "hacktv_tpu_torch", *args, "-o", out,
+                 spec], capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                fail(f"cli {args} exited {r.returncode}: {r.stderr[-2000:]}")
+            size = os.path.getsize(out)
+            phase("cli", args="".join(args) + "raw:motion.raw:720x576",
+                  bytes=size, seconds=f"{time.perf_counter() - t:.1f}")
+            if size != 128 * 640_000 * 2 * 2:
+                fail(f"cli {args} wrote {size} bytes, expected "
+                     f"{128 * 640_000 * 4}")
+            if not np.any(np.fromfile(out, np.int16, count=1 << 20)):
+                fail(f"cli {args} wrote only zeros")
+            os.remove(out)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR")
@@ -1286,16 +1589,26 @@ def main() -> int:
     dance_phase()
     mac_phase()
     launches = {}
-    for path in (*PATHS, *MAC_PATHS):
-        launches[path] = e2e_phase(sf, path, args.profile)
-    for path, rec in recs:
-        rec["launches"] = launches[path]["fir_cplx" if rec["name"].endswith(
-            "cplx") else "fir_real"]
-        if not rec["launches"]:
-            fail(f"{path}: {rec['name']} was not launched on the main path")
-    cpu_compare_phase()
-    mac_compare_phase()
-    cli_phase()
+    with tempfile.TemporaryDirectory() as motion_dir:
+        t = time.perf_counter()
+        MOTION["path"] = write_motion(motion_dir)
+        phase("motion", frames=MOTION_FRAMES, size="{}x{}".format(
+            *MOTION_SIZE), bytes=os.path.getsize(MOTION["path"]),
+            seconds=f"{time.perf_counter() - t:.1f}")
+        for path in (*PATHS, *MOVING_PATHS, *MAC_PATHS):
+            launches[path] = e2e_phase(sf, path, args.profile)
+        for path, rec in recs:
+            rec["launches"] = launches[path][
+                "fir_cplx" if rec["name"].endswith("cplx") else "fir_real"]
+            if not rec["launches"]:
+                fail(f"{path}: {rec['name']} was not launched on the main "
+                     "path")
+        cpu_compare_phase()
+        mac_compare_phase()
+        moving_phase()
+        checkpoint_phase()
+        cli_phase()
+        moving_cli_phase()
     print(json.dumps({"kernels": [rec for _, rec in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -459,6 +459,45 @@ class AudioChain:
         fa, _ = self._nicam_dev_anchor
         self._nicam_dev_anchor = (fa, dsym)
 
+    # -- checkpoint/resume ----------------------------------------------
+    # The chain's cross-block state is a handful of anchors; the held-value
+    # caches are recomputed and dropped.  The NICAM carry leaves the device
+    # as numpy, so that a checkpoint resumes on any device.
+    _CARRIER_SLOTS = ("fm_mono", "fm_right", "am_mono")
+
+    def state_dict(self) -> dict:
+        names = {id(getattr(self, nm)): nm for nm in self._CARRIER_SLOTS
+                 if getattr(self, nm, None) is not None}
+        remap = lambda d: {names[k]: v for k, v in d.items() if k in names}
+        st = {"int_anchor": remap(self._int_anchor),
+              "dev_anchor": remap(self._dev_anchor)}
+        for a in ("_pilot_anchor", "_dance_dsym_anchor"):
+            if hasattr(self, a):
+                st[a] = getattr(self, a)
+        anc = getattr(self, "_nicam_dev_anchor", None)
+        if anc is not None:
+            dsym = anc[1]
+            st["_nicam_dev_anchor"] = (anc[0], dsym.cpu().numpy()
+                                       if isinstance(dsym, torch.Tensor)
+                                       else np.asarray(dsym))
+        return st
+
+    def load_state(self, st: dict, device) -> None:
+        """Restore state_dict() into this (identically configured) chain;
+        the NICAM carry goes to `device`."""
+        ids = {nm: id(getattr(self, nm)) for nm in self._CARRIER_SLOTS
+               if getattr(self, nm, None) is not None}
+        self._int_anchor = {ids[nm]: v for nm, v in st["int_anchor"].items()}
+        self._dev_anchor = {ids[nm]: v for nm, v in st["dev_anchor"].items()}
+        self._held_cache = {}
+        for a in ("_pilot_anchor", "_dance_dsym_anchor"):
+            if a in st:
+                setattr(self, a, st[a])
+        if "_nicam_dev_anchor" in st:
+            fa, dsym = st["_nicam_dev_anchor"]
+            self._nicam_dev_anchor = (fa, torch.as_tensor(dsym,
+                                                          device=device))
+
     def _nicam_pcm_win(self, fa: int, dst) -> np.ndarray:
         """PCM window (history first) for frames [fa, fa+nf_max).  Frame
         f carries audio pairs [32(f-1), 32f); frame 0 is the modulator's

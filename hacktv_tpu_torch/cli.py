@@ -2,9 +2,20 @@
 covers (port of hacktv_tpu/cli.py).
 
     python -m hacktv_tpu_torch -m i --frames 4 -o out.bin test
+    python -m hacktv_tpu_torch -m i --filter -o out.bin raw:clip.raw:720x576
 
-writes 4 frames of PAL-I with FM and NICAM-728 sound as interleaved int16
-I/Q.  Accepted: -m MODE, --list-modes [--json], -s RATE, --pixelrate
+write 4 frames of PAL-I with FM and NICAM-728 sound, and PAL-I through
+the VSB filter from a raw RGB32 file until it ends, as interleaved int16
+I/Q.  Inputs, played in order: `test` (the test card), `raw:PATH[:WxH]`
+(RGB32 frames, with PATH.pcm sound and PATH.cc608 captions),
+`ffmpeg:PATH` or a bare path (the ffmpeg binary when it is on PATH,
+OpenCV otherwise), fitted to the active picture (--fit, --letterbox,
+--pillarbox, --min-aspect, --max-aspect) and sequenced with -r/--repeat
+and --shuffle; --ffmt and --fopts pass an input format and its options
+to ffmpeg.  Accepted besides: -v/--verbose (the mode report and a
+progress line), --version, --threads (ignored), --profile DIR (a
+torch.profiler trace of the encode loop), -m MODE, --list-modes
+[--json], -s RATE, --pixelrate
 RATE, -l LEVEL, -D DEVIATION, -G GAMMA, --fm-energy-dispersal, -i,
 --volume, --nocolour/--nocolor, --s-video, --invert-video, --filter,
 --noaudio, --nonicam, --a2stereo, --swap-iq, --offset HZ, --passthru FILE,
@@ -18,8 +29,9 @@ services --teletext PATH, --wss MODE, --vits, --vitc, --cc608, --acp and
 [PPV], --nodate, --showecm, --scramble-audio, --chid ID and
 --mac-audio-{stereo,mono,high-quality,medium-quality,companded,linear,
 l1-protection,l2-protection}, -t TYPE, -o FILE, --frames N, --seconds S,
---frames-per-block N, --device {cuda,cpu} and the input `test`.  The MAC
-modes run video/mac.py's MacEncoder.
+--frames-per-block N and --device {cuda,cpu}.  The MAC modes run
+video/mac.py's MacEncoder.  The run stops at --frames/--seconds, or when
+the inputs end.
 HACKTV_TPU_TELETEXT_TIME=<unix seconds> fixes the teletext clock, as for
 hacktv_tpu, so that a run is deterministic.  The output goes through the
 native runtime's threaded file sink (runtime.NativeFileSink), built at
@@ -35,11 +47,12 @@ import json
 import math
 import os
 import sys
+import time
 from dataclasses import replace
 
 import numpy as np
 
-from .config.standards import ColourMode, get_mode, list_modes
+from .config.standards import REGISTRY, ColourMode, get_mode, list_modes
 
 
 def _build_parser() -> argparse.ArgumentParser:
@@ -49,12 +62,27 @@ def _build_parser() -> argparse.ArgumentParser:
                     "(hacktv-compatible subset)")
     a = p.add_argument
     a("input", nargs="*", default=["test"],
-      help="input: 'test' (the test card) is the only source ported yet")
+      help="input: 'test' (test card), 'raw:<file>' (RGB32+PCM), "
+           "'ffmpeg:<path>' or a path (ffmpeg binary, else OpenCV)")
     a("-o", "--output", default="-",
       help="output: file:<path>, a bare path, or - for stdout")
     a("-m", "--mode", default="i", help="TV mode id (see --list-modes)")
     a("--list-modes", action="store_true")
     a("--json", action="store_true")
+    a("--fit", choices=["stretch", "fill", "fit", "none"], default=None)
+    a("--min-aspect", default=None)
+    a("--max-aspect", default=None)
+    a("--letterbox", action="store_true")
+    a("--pillarbox", action="store_true")
+    a("-r", "--repeat", action="store_true")
+    a("--shuffle", action="store_true")
+    a("-v", "--verbose", action="store_true")
+    a("--profile", default=None, metavar="DIR",
+      help="write a torch.profiler trace of the encode loop into DIR")
+    a("--ffmt", default=None, help="ffmpeg input format hint")
+    a("--fopts", default=None, help="ffmpeg input format options")
+    a("--threads", action="store_true", help="accepted for compatibility")
+    a("--version", action="store_true")
     a("-s", "--samplerate", type=float, default=16e6)
     a("--pixelrate", type=float, default=0)
     a("-l", "--level", type=float, default=None)
@@ -142,8 +170,9 @@ def _build_parser() -> argparse.ArgumentParser:
     a("--seconds", type=float, default=0,
       help="stop after S seconds of signal")
     a("--frames-per-block", type=int, default=0,
-      help="frames synthesised per device call (0 = 16, or --frames if "
-           "fewer)")
+      help="frames synthesised per device call (0 = 16 for the test "
+           "card, 8 for moving inputs, 1 for moving SECAM, field-"
+           "sequential or MAC; at most --frames)")
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="where the encoder runs (default: the CUDA card)")
     return p
@@ -271,13 +300,122 @@ def _check_services(args, conf) -> None:
                          "in conjunction with Eurocrypt")
 
 
+def _make_source(spec: str, active_width: int, active_lines: int,
+                 frame_rate, ffmt=None, fopts=None):
+    """One input of the list: the test card, a raw RGB32 file, or a video
+    file through ffmpeg (or OpenCV without the binary)."""
+    from .av.testcard import TestCardSource
+    if spec == "test":
+        return TestCardSource(active_width, active_lines)
+    if spec.startswith("raw:"):
+        from .av.rawfile import RawFileSource
+        return RawFileSource(spec[4:], active_width, active_lines)
+    from .av.ffmpeg import open_video_source
+    path = spec.split(":", 1)[1] if spec.startswith("ffmpeg:") else spec
+    return open_video_source(path, active_width, active_lines,
+                             frame_rate=frame_rate, ffmt=ffmt, fopts=fopts)
+
+
+def _build_source(args, conf, active_width):
+    """Input list -> one AV source: the fit geometry applied to each
+    input but the test card, several inputs (or --repeat/--shuffle)
+    sequenced (src/hacktv.c:1502-1598)."""
+    from .av.frame_ops import FitConfig, FitSource
+    from .av.sequence import SequenceSource
+    from .rational import Rational
+
+    aw, al = active_width, conf.active_lines
+    need_fit = (args.fit is not None or args.letterbox or args.pillarbox
+                or args.min_aspect or args.max_aspect
+                or any(s != "test" for s in args.input))
+    ratios = (Rational(4, 3),)
+    if args.letterbox or args.pillarbox:
+        ratios = (Rational(16, 9),) if args.letterbox else (Rational(4, 3),)
+    elif conf.mac_mode is not None:
+        ratios = (Rational(4, 3), Rational(16, 9))
+
+    def parse_ratio(s):
+        if s is None:
+            return None
+        if ":" in s:
+            a, b = s.split(":")
+            return Rational(int(a), int(b))
+        return Rational(*float(s).as_integer_ratio())
+
+    cfg = FitConfig(
+        width=aw, height=al,
+        fit_mode=args.fit or ("fit" if args.letterbox or args.pillarbox
+                              else "stretch"),
+        display_aspect_ratios=ratios,
+        min_display_aspect_ratio=parse_ratio(args.min_aspect),
+        max_display_aspect_ratio=parse_ratio(args.max_aspect))
+
+    def make(spec):
+        def f():
+            src = _make_source(spec, aw, al, conf.frame_rate,
+                               ffmt=args.ffmt, fopts=args.fopts)
+            if need_fit and spec != "test":
+                # the stream's PAR (anamorphic DVD/DVB input) feeds the
+                # DAR maths (src/av_ffmpeg.c:606-680)
+                spar = getattr(src, "pixel_aspect_ratio", None)
+                par = (Rational(spar.numerator, spar.denominator)
+                       if spar is not None else None)
+                return FitSource(src, cfg, par=par)
+            return src
+        return f
+
+    if len(args.input) == 1 and not args.repeat and not args.shuffle:
+        return make(args.input[0])()
+    return SequenceSource([make(s) for s in args.input],
+                          repeat=args.repeat, shuffle=args.shuffle)
+
+
+def _frames_per_block(args, conf, frames: int) -> int:
+    """--frames-per-block, or 16 for the test card and 8 for moving
+    inputs, whose frames stack on the device; 1 for moving SECAM,
+    field-sequential colour and MAC, which take one frame a block; never
+    more than a bounded capture."""
+    fpb = args.frames_per_block
+    if fpb <= 0:
+        if args.input == ["test"]:
+            fpb = 16
+        elif conf.mac_mode is None and conf.colour_mode not in (
+                ColourMode.SECAM, ColourMode.APOLLO_FSC,
+                ColourMode.CBS_FSC):
+            fpb = 8
+        else:
+            fpb = 1
+        if frames:
+            fpb = min(fpb, frames)
+    return fpb
+
+
+def _report(args, conf, enc, sample_rate, pixel_rate) -> None:
+    """The vid_info()-style mode report (src/video.c:4846-4860)."""
+    fr = conf.frame_rate
+    width = enc.frame_samples // conf.lines
+    if conf.mac_mode is not None:
+        aw, al = type(enc).active_geometry(conf, sample_rate, pixel_rate)
+    else:
+        aw, al = enc.params.active_width, conf.active_lines
+    print(f"Mode: {args.mode} ({REGISTRY[args.mode][1]})", file=sys.stderr)
+    print(f"Video: {aw}x{al} {fr.num / fr.den:.2f} fps "
+          f"(full frame {width}x{conf.lines})", file=sys.stderr)
+    if pixel_rate and int(pixel_rate) != int(sample_rate):
+        print(f"Pixel rate: {int(pixel_rate)}", file=sys.stderr)
+    print(f"Sample rate: {int(sample_rate)} "
+          f"({'complex' if enc.complex_out else 'real'} int16)",
+          file=sys.stderr)
+
+
 def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
+    if args.version:
+        print("hacktv_tpu_torch 0.1.0 (hacktv on an NVIDIA GPU)")
+        return 0
     if args.list_modes:
         _print_modes(args.json)
         return 0
-    if args.input != ["test"]:
-        raise NotImplementedError("only the 'test' input is ported yet")
     try:
         conf = get_mode(args.mode)
     except KeyError as e:
@@ -304,46 +442,94 @@ def main(argv=None) -> int:
     if args.seconds:
         fr = conf.frame_rate
         frames = max(frames, int(np.ceil(args.seconds * fr.num / fr.den)))
-    # 16 frames per block, or the whole capture if it is shorter
-    fpb = args.frames_per_block
-    if fpb <= 0:
-        fpb = min(16, frames) if frames else 16
+    fpb = _frames_per_block(args, conf, frames)
 
     from .runtime import NativeFileSink
     if conf.mac_mode is not None:
-        enc = _mac_encoder(args, conf, sample_rate, pixel_rate, fpb)
+        from .video.mac import MacEncoder
+        aw, _ = MacEncoder.active_geometry(conf, sample_rate, pixel_rate)
+        source = _build_source(args, conf, aw)
+        enc = _mac_encoder(args, conf, sample_rate, pixel_rate, fpb, source)
     else:
-        enc = _encoder(args, conf, sample_rate, pixel_rate, fpb)
+        from .video.params import VideoParams
+        p = VideoParams.create(conf, sample_rate, pixel_rate)
+        source = _build_source(args, conf, p.active_width)
+        enc = _encoder(args, conf, sample_rate, pixel_rate, fpb, source)
     target = args.output[5:] if args.output.startswith("file:") \
         else args.output
     sink = NativeFileSink(target, args.type, enc.complex_out)
+    if args.verbose:
+        _report(args, conf, enc, sample_rate, pixel_rate)
+
+    t0 = time.monotonic()
+    samples_out = 0
     frames_done = 0
     block = 0
+    prof = None
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if enc.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+        prof.__enter__()
     try:
         # one-block pipeline: block b+1 is queued on the device before
-        # block b is copied back and written
-        pending = enc.encode_block_device(0)
-        while pending is not None:
+        # block b is copied back and written; the inputs' end stops the
+        # dispatch
+        dispatched = 0
+        pending = None
+        while True:
             nxt = None
-            if not frames or frames_done + fpb < frames:
-                nxt = enc.encode_block_device(block + 1)
-            out = enc.collect_block(block, pending)
-            if out.ndim == 1:
-                out = np.stack([out, np.zeros_like(out)], axis=-1)
-            if frames and frames_done + fpb > frames:
-                out = out[: (frames - frames_done) * enc.frame_samples]
-            sink.write(out)
-            frames_done += fpb
-            block += 1
+            if not (frames and dispatched >= frames) \
+                    and not source.eof(dispatched):
+                nxt = (block, enc.encode_block_device(block))
+                block += 1
+                dispatched += fpb
+            if pending is not None:
+                b0, dev = pending
+                out = enc.collect_block(b0, dev)
+                if out.ndim == 1:
+                    out = np.stack([out, np.zeros_like(out)], axis=-1)
+                if frames and frames_done + fpb > frames:
+                    out = out[: (frames - frames_done) * enc.frame_samples]
+                sink.write(out)
+                samples_out += len(out)
+                if args.verbose and b0 % 64 == 63:
+                    dt = max(time.monotonic() - t0, 1e-9)
+                    print(f"\r{samples_out} samples, "
+                          f"{samples_out / dt / 1e6:.1f} MS/s "
+                          f"({samples_out / dt / sample_rate:.1f}x "
+                          "realtime)", end="", file=sys.stderr)
+                frames_done += fpb
             pending = nxt
+            if pending is None:
+                break
+            if frames and frames_done >= frames:
+                break
     except (BrokenPipeError, KeyboardInterrupt):
         pass
     finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            os.makedirs(args.profile, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                args.profile, "hacktv_tpu_torch_trace.json"))
+            print(f"profiler trace written to {args.profile}",
+                  file=sys.stderr)
         sink.close()
+        if hasattr(source, "close"):
+            source.close()
+        if args.verbose and samples_out:
+            dt = max(time.monotonic() - t0, 1e-9)
+            print(f"\n{samples_out} samples in {dt:.2f} s = "
+                  f"{samples_out / dt / 1e6:.1f} MS/s "
+                  f"({samples_out / dt / sample_rate:.1f}x realtime)",
+                  file=sys.stderr)
     return 0
 
 
-def _mac_encoder(args, conf, sample_rate, pixel_rate, fpb):
+def _mac_encoder(args, conf, sample_rate, pixel_rate, fpb, source):
     """The D/D2-MAC encoder the switches ask for (hacktv_tpu's MAC
     dispatch; its teletext keeps the wall clock, as there)."""
     from .video.mac import MacEncoder
@@ -354,21 +540,21 @@ def _mac_encoder(args, conf, sample_rate, pixel_rate, fpb):
                        ppv=args.ec_ppv, nodate=args.nodate,
                        showecm=args.showecm)
     scr = 2 if args.double_cut else (1 if args.single_cut else 0)
-    return MacEncoder(conf, sample_rate, pixel_rate, frames_per_block=fpb,
-                      scramble_video=scr,
+    return MacEncoder(conf, sample_rate, pixel_rate, source=source,
+                      frames_per_block=fpb, scramble_video=scr,
                       scramble_audio=args.scramble_audio, eurocrypt=ec,
                       teletext=args.teletext, device=args.device)
 
 
-def _encoder(args, conf, sample_rate, pixel_rate, fpb):
+def _encoder(args, conf, sample_rate, pixel_rate, fpb, source):
     """The raster encoder with the services the switches ask for."""
     from .encoder import Encoder
     tt_clock = None
     if os.environ.get("HACKTV_TPU_TELETEXT_TIME"):
         tt_time = int(os.environ["HACKTV_TPU_TELETEXT_TIME"])
         tt_clock = lambda: tt_time
-    return Encoder(conf, sample_rate, pixel_rate, frames_per_block=fpb,
-                   teletext=args.teletext, teletext_clock=tt_clock,
+    return Encoder(conf, sample_rate, pixel_rate, source=source,
+                   frames_per_block=fpb, teletext=args.teletext, teletext_clock=tt_clock,
                    wss=args.wss, vits=args.vits, vitc=args.vitc,
                    cc608=args.cc608, acp=args.acp, sis=args.sis,
                    videocrypt=args.videocrypt, videocrypt2=args.videocrypt2,

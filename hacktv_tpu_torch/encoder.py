@@ -12,9 +12,12 @@ and the line scramblers (Videocrypt I/II/S, Syster with and without
 cut-and-rotate, Discret 11, the Syster audio inversion), the pixel-rate
 resampler (`pixel_rate`), and the RF tail every mode shares: swap-IQ,
 the frequency offset and the passthru stream; a raw baseband file may
-replace the raster.  A block of
-`frames_per_block` whole frames, plus one halo line each side for filter
-continuity, is synthesised as a sequence of tensor ops on one device:
+replace the raster.  The source is the test card or a moving one (av/:
+raw RGB32 files, ffmpeg, OpenCV, sequences, the fit geometry), whose
+frames convert on the device through the reference's 16M-entry LUT.  A
+block of `frames_per_block` whole frames, plus one halo line each side
+for filter continuity, is synthesised as a sequence of tensor ops on one
+device:
 
     raster (video/raster.py) -> SECAM chroma and render (video/secam.py)
     -> services and scramblers (services/) -> resampler (ops/resampler.py)
@@ -36,7 +39,8 @@ The FM phase anchor, the FM-video phase, the NICAM differential state
 and the SECAM IIR state are device scalars (the host-exact carriers and
 IIR host state) chained block to block, and the scramblers' PRBS state
 and DANCE's differential state live on the host, so blocks must be
-encoded in order.
+encoded in order.  `checkpoint` writes those carries out (numpy only) and
+`load_checkpoint` resumes a fresh encoder from them, on either device.
 
 Metadata, line tables, taps and the audio window bookkeeping stay host
 numpy.  Options that are not ported yet raise NotImplementedError.
@@ -44,7 +48,9 @@ numpy.  Options that are not ported yet raise NotImplementedError.
 
 from __future__ import annotations
 
+import copy
 import math
+import pickle
 import sys
 from collections import OrderedDict
 from dataclasses import replace
@@ -173,10 +179,10 @@ class Encoder:
                 source = TestCardSource(p.active_width, conf.active_lines)
         if conf.frame_orientation:
             source = _OrientedSource(source, conf.frame_orientation)
-        if not getattr(source, "stateless", False):
-            raise NotImplementedError("moving-video sources are not ported "
-                                      "yet")
         self.source = source
+        # a moving source: any source whose frames are not addressable by
+        # index (the test card is)
+        moving = not getattr(source, "stateless", False)
         self.vframe_x = (p.active_width - source.width) // 2
         self.vframe_y = (conf.active_lines - source.height) // 2
 
@@ -304,10 +310,10 @@ class Encoder:
         self.secam_device = False
         if conf.colour_mode == ColourMode.SECAM:
             st = secam_mod.make_statics(p, self.vframe_x, source.width)
-            # the field-identification lines' full-span sawtooth takes the
-            # carrier phase past 120 rad
-            self.secam = secam_mod.to_device(st, self.device,
-                                             large=conf.secam_field_id)
+            # the field-identification lines' full-span sawtooth, and
+            # saturated moving colour, take the carrier phase past 120 rad
+            self.secam = secam_mod.to_device(
+                st, self.device, large=conf.secam_field_id or moving)
             if secam_exact is None:
                 secam_exact = conf.modulation == Modulation.FM
             self.secam_device = not secam_exact
@@ -370,6 +376,17 @@ class Encoder:
         self._meta_cache: OrderedDict = OrderedDict()
         self._rgb_cache: tuple | None = None
         self._fpb_warned = False
+        # moving sources convert on the device through the 16M-entry LUT
+        # (held on the device once per encoder); with several frames a
+        # block, fpb + 2 frames a block (a leading halo frame and a
+        # trailing lookahead) are stacked and gathered by absolute row.
+        # SECAM keeps single-frame planes for its chroma program.
+        self._dev_convert = self._use_dev_convert()
+        self._multi_frame = (self._dev_convert and frames_per_block > 1
+                             and self.secam is None)
+        self._nf = frames_per_block + 2
+        self._frame_cache: dict = {}
+        self._yuv_lut = None
 
     def _init_audio(self, a2stereo: bool, systeraudio: bool):
         """Audio subcarriers (FM mono, the A2 second carrier and pilot,
@@ -479,6 +496,20 @@ class Encoder:
                            vframe_w=self.source.width,
                            vframe_h=self.source.height,
                            spill_warmup=self._spill_warmup)
+        if self._multi_frame:
+            # absolute stacked row: f_local (H + 1) + row, or + H for the
+            # frame's fallback row; the per-line frame offsets repeat
+            # under the same cache key
+            L = p.conf.lines
+            H = self.source.height
+            ks = np.maximum(k0 - 1 + np.arange(len(meta["vy"]),
+                                               dtype=np.int64), 0)
+            first_f = max((k0 - 1) // L, 0)
+            f_local = np.clip(ks // L - first_f, 0, self._nf - 1)
+            vy0 = meta["vy"]
+            meta = dict(meta)
+            meta["vy"] = np.where(vy0 >= 0, f_local * (H + 1) + vy0,
+                                  f_local * (H + 1) + H)
         dev = {k: torch.as_tensor(meta[k].astype(np.int64),
                                   device=self.device) for k in _INDEX_KEYS}
         dev.update({k: torch.as_tensor(meta[k].astype(np.float32),
@@ -494,8 +525,23 @@ class Encoder:
         return p.cl_num // math.gcd(p.width, p.cl_num)
 
     def _device_rgb(self, block_no: int):
-        """Bit-exact host YUV conversion (f64, matching the reference's
-        LUT build), uploaded once per distinct source frame."""
+        """The block's picture on the device.  A moving source's frames go
+        up as uint8, with the LUT they convert through in the step: a
+        stack of the block's frames (multi-frame), or its first frame.
+        Otherwise the host conversion (f64, bit-exact with the
+        reference's LUT build), uploaded once per distinct source
+        frame."""
+        if self._multi_frame:
+            # frames are read per block window in ascending order (the
+            # ffmpeg pipe decodes monotonically)
+            if self._rgb_cache is not None \
+                    and self._rgb_cache[0] == ("blk", block_no):
+                return self._rgb_cache[1]
+            stack = np.stack([self._read_frame(block_no, j)
+                              for j in range(self._nf)])
+            dev = (self._lut(), torch.as_tensor(stack, device=self.device))
+            self._rgb_cache = (("blk", block_no), dev)
+            return dev
         rgb = self.source.read_video(block_no * self.frames_per_block)
         if self._rgb_cache is not None and self._rgb_cache[0] is rgb:
             return self._rgb_cache[1]
@@ -505,7 +551,13 @@ class Encoder:
             self._fpb_warned = True
             print("hacktv_tpu_torch: warning: frames_per_block="
                   f"{self.frames_per_block} with a non-static source "
-                  "repeats each block's first frame", file=sys.stderr)
+                  "repeats each block's first frame; use "
+                  "--frames-per-block 1 for moving video", file=sys.stderr)
+        if self._dev_convert:
+            dev = (self._lut(), torch.as_tensor(np.ascontiguousarray(rgb),
+                                                device=self.device))
+            self._rgb_cache = (rgb, dev)
+            return dev
         if self.statics.fsc_mode is not None:
             # field-sequential colour: one grey plane per channel, in the
             # order of the fsc value 0=B, 1=G, 2=R (the reference
@@ -526,6 +578,44 @@ class Encoder:
         self._rgb_host_uv = host[1:]
         return yuv
 
+    def _lut(self) -> torch.Tensor:
+        """The conversion LUT on the device (SECAM's u/v are FM frequency
+        offsets, src/video.c:3944-3953), built at first use."""
+        if self._yuv_lut is None:
+            self._yuv_lut = torch.as_tensor(
+                raster.build_yuv_lut(self.params, self.secam is not None),
+                device=self.device)
+        return self._yuv_lut
+
+    def _read_frame(self, block_no: int, j: int) -> np.ndarray:
+        """Frame first_f + j of block block_no, from the block-window
+        cache.  Block b reads frame fpb b - 1 again as its halo, and
+        sources like the ffmpeg pipe decode monotonically and reuse their
+        frame buffer, so frames are copied on first read and evicted only
+        below the window."""
+        L = self.conf.lines
+        k0 = block_no * self.frames_per_block * L
+        first_f = max((k0 - 1) // L, 0)
+        f = first_f + j
+        hit = self._frame_cache.get(f)
+        if hit is None:
+            hit = np.array(self.source.read_video(f), copy=True)
+            self._frame_cache[f] = hit
+            for old_f in [x for x in self._frame_cache if x < first_f]:
+                del self._frame_cache[old_f]
+        return hit
+
+    def _use_dev_convert(self) -> bool:
+        """The device LUT conversion serves moving sources; the SECAM
+        host-exact chroma needs the host u/v planes, field-sequential
+        colour restacks planes, raw baseband has no picture, and the
+        static test card converts once anyway."""
+        if getattr(self.source, "stateless", False):
+            return False
+        if self.statics.fsc_mode is not None or self.raw_bb is not None:
+            return False
+        return self.secam is None or self.secam_device
+
     # ------------------------------------------------------------------
     def _step(self, yuv, m: dict, first: float, audio: dict):
         """Synthesis + output filter + audio + RF tail + int16
@@ -538,6 +628,13 @@ class Encoder:
         n = nlines * W
         carry = {}
 
+        stacked_h = 0
+        if self._dev_convert:
+            yuv = raster.yuv_convert_device(*yuv)
+            if self._multi_frame:
+                yuv = raster.stack_planes(*yuv, self.statics.black_y)
+                stacked_h = self.source.height + 1
+
         cblock = None
         if self.raw_bb is not None:
             block = audio["rawbb"]
@@ -548,7 +645,8 @@ class Encoder:
                 self.dstatics, yuv, m["base"], m["nxt"], m["burst"],
                 m["vswitch"], m["vy"], m["al"], m["ar"], m["cos0"],
                 m["sin0"], m["lut_row"], m["prv"] if self._use_prv else None,
-                m["fsc"], m["fscf"], split_chroma=self.conf.s_video)
+                m["fsc"], m["fscf"], split_chroma=self.conf.s_video,
+                stacked_h=stacked_h)
             if self.conf.s_video:
                 block, cblock = block
         if self.secam is not None:
@@ -918,6 +1016,90 @@ class Encoder:
             self._fm_r.pop(block_no - 2, None)
         return out
 
+    # ------------------------------------------------------------------
+    # Stream checkpoint/resume: the cross-block carries (FM phases, the
+    # SECAM IIR, the audio anchors, the services' schedulers and PRBS
+    # state) are explicit state.  The blob holds numpy and plain Python
+    # values only, so a checkpoint written on the card resumes on the CPU
+    # and the other way round.
+    def checkpoint(self, next_block: int) -> bytes:
+        """Serialise the stream state so that a FRESH Encoder built with
+        the same arguments can `load_checkpoint` and continue at
+        `next_block` bit-identically.  Blocks [0, next_block) must have
+        been encoded, from an index-addressable (stateless) source."""
+        if self.passthru is not None:
+            raise NotImplementedError(
+                "checkpoint with --passthru is not supported")
+        if not getattr(self.source, "stateless", False):
+            raise NotImplementedError(
+                "checkpoint requires an index-addressable source")
+        host = lambda t: t.cpu().numpy()
+        b = int(next_block)
+        st: dict = {"version": 1, "next_block": b}
+        if self.fm_video_statics is not None:
+            st["fm_r"] = host(self._fm_r[b])
+        if self.fm_dev_held:
+            exp, xa = self._fm_xa[b]
+            if xa is None:
+                raise RuntimeError(f"encode block {b - 1} before "
+                                   "checkpointing")
+            st["fm_xa"] = (exp, host(xa))
+        if self.secam is not None:
+            if self.secam_device:
+                st["secam_z"] = host(self._secam_z[b])
+            else:
+                st["secam_iir"] = self._secam_iir[b]
+        for nm in ("fm_exact", "fm_video_exact"):
+            fx = getattr(self, nm)
+            if fx is not None:
+                st[nm] = (fx._state.copy(), fx.n)
+        st["audio"] = self.audio.state_dict()
+        svc = []
+        for s in self.services:
+            if hasattr(s, "ckpt_state"):
+                svc.append(("m", s.ckpt_state()))
+            else:
+                if getattr(s, "raw", None) is not None:
+                    raise NotImplementedError(
+                        "checkpoint with a raw: packet stream")
+                svc.append(("a", {a: copy.deepcopy(getattr(s, a))
+                                  for a in getattr(s, "_CKPT_ATTRS", ())}))
+        st["services"] = svc
+        return pickle.dumps(st)
+
+    def load_checkpoint(self, blob: bytes) -> int:
+        """Restore checkpoint() state into this (freshly built,
+        identically configured) encoder; returns the block to encode
+        next.  The blob must come from this program: unpickling runs
+        code."""
+        st = pickle.loads(blob)
+        b = st["next_block"]
+        dev = lambda a: torch.as_tensor(a, device=self.device)
+        if "fm_r" in st:
+            self._fm_r = {b: dev(st["fm_r"])}
+        if "fm_xa" in st:
+            exp, xa = st["fm_xa"]
+            self._fm_xa = {b: [exp, dev(xa)]}
+            self._fm_xa_started = True
+        if "secam_z" in st:
+            self._secam_z = {b: dev(st["secam_z"])}
+        if "secam_iir" in st:
+            self._secam_iir = {b: st["secam_iir"]}
+        for nm in ("fm_exact", "fm_video_exact"):
+            if nm in st:
+                fx = getattr(self, nm)
+                state, n = st[nm]
+                fx._state[:] = state
+                fx.n = n
+        self.audio.load_state(st["audio"], self.device)
+        for s, (kind, data) in zip(self.services, st["services"]):
+            if kind == "m":
+                s.ckpt_load(data)
+            else:
+                for a, v in data.items():
+                    setattr(s, a, v)
+        return b
+
     @property
     def frame_samples(self) -> int:
         """Output samples per frame."""
@@ -995,6 +1177,18 @@ class _OrientedSource:
 
     def read_audio(self, start: int, count: int) -> np.ndarray:
         return self.inner.read_audio(start, count)
+
+    def read_cc608(self, frame_no: int):
+        f = getattr(self.inner, "read_cc608", None)
+        return f(frame_no) if f is not None else (0, 0)
+
+    def eof(self, frame_no: int) -> bool:
+        f = getattr(self.inner, "eof", None)
+        return bool(f(frame_no)) if f is not None else False
+
+    def close(self) -> None:
+        if hasattr(self.inner, "close"):
+            self.inner.close()
 
 
 class _RawBBReader:

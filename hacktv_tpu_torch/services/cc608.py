@@ -30,6 +30,8 @@ def encode_chars(c1: int, c2: int) -> bytes:
 
 class CC608:
     STATICS = ("basis", "cri")
+    # what a checkpoint carries (Encoder.checkpoint)
+    _CKPT_ATTRS = ("fifo", "_cc_frame")
 
     def __init__(self, params, source=None, device="cuda"):
         p = params

@@ -14,6 +14,8 @@ blank window and adds the quit pulses as a basis matmul.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -144,6 +146,17 @@ class SiS:
 
     lookahead = 1
     STATICS = ("basis", "blank_win", "warmup_spill")
+    # checkpoint: the generator state minus its chain/source references
+    _SIS_FIELDS = ("fnum", "hist", "_symq", "_symq_base", "_sim",
+                   "_sim_e")
+
+    def ckpt_state(self):
+        return {f: copy.deepcopy(getattr(self.state, f))
+                for f in self._SIS_FIELDS}
+
+    def ckpt_load(self, d):
+        for f, v in d.items():
+            setattr(self.state, f, copy.deepcopy(v))
 
     def __init__(self, params, mode: str, chain, audio_lag_lines: int,
                  device="cuda"):

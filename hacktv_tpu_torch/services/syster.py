@@ -483,6 +483,8 @@ def _rotate_columns(p, vs: np.ndarray) -> tuple[np.ndarray, int, int]:
 class SysterBase:
     """Shared pieces: VBI arrays + basis."""
 
+    _CKPT_ATTRS = ("state",)
+
     def __init__(self, p, mode: str, device="cuda", **flags):
         if p.conf.lines != 625:
             raise ValueError("syster: requires a 625-line mode")

@@ -16,6 +16,7 @@ testing; the reference uses wall time (src/teletext.c:605, 1183).
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 import time as _time
@@ -479,6 +480,28 @@ class Teletext:
     """Batch-encoder service wrapper."""
 
     STATICS = ("basis",)
+
+    def ckpt_state(self):
+        """Scheduler and page-ring state; the clock callable (which may
+        not pickle) stays with the live encoder."""
+        if self.raw is not None:
+            raise NotImplementedError(
+                "checkpoint with a raw: packet stream")
+        svc = self.service
+        clock = svc.clock
+        svc.clock = None
+        try:
+            snap = copy.deepcopy(svc)
+        finally:
+            svc.clock = clock
+        return {"service": snap,
+                "pkt_cache": copy.deepcopy(self._pkt_cache)}
+
+    def ckpt_load(self, d):
+        clock = self.service.clock
+        self.service = d["service"]
+        self.service.clock = clock
+        self._pkt_cache = dict(d["pkt_cache"])
 
     def __init__(self, params, path: str, clock=None, device="cuda"):
         p = params

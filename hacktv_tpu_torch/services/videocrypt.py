@@ -268,6 +268,7 @@ class Videocrypt:
     """Batched Videocrypt I/II line process."""
 
     STATICS = ("basis",)
+    _CKPT_ATTRS = ("state",)
 
     def __init__(self, params, mode: str | None = None,
                  mode2: str | None = None, device="cuda"):

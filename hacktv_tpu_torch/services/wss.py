@@ -59,6 +59,7 @@ class WSS:
     """Per-block WSS arrays for the batch encoder."""
 
     STATICS = ("basis", "bits")
+    _CKPT_ATTRS = ("bits",)
 
     def __init__(self, params, mode: str, device="cuda"):
         try:

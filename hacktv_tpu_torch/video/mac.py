@@ -29,7 +29,9 @@ products with TF32 off (chip_smoke.py's `mac` phase; PERF.md).
 
 from __future__ import annotations
 
+import copy
 import math
+import pickle
 from fractions import Fraction
 
 import numpy as np
@@ -1915,11 +1917,73 @@ class MacEncoder:
             self._fm_r.pop(block_no - 2, None)
         return out
 
+    # ------------------------------------------------------------------
+    # Stream checkpoint/resume: the packet multiplex, CA, audio-coder and
+    # scramble state all live in the host MacMux, so the checkpoint is
+    # the mux with its source and teletext clock detached, plus the FM
+    # phase and the line polarity carries as numpy (a checkpoint written
+    # on the card resumes on the CPU and the other way round).
     def checkpoint(self, next_block: int) -> bytes:
-        raise NotImplementedError("MAC checkpoints are not ported yet")
+        if not getattr(self.source, "stateless", False):
+            raise NotImplementedError(
+                "checkpoint requires an index-addressable source")
+        tt = self.mux.teletext
+        if tt is not None and getattr(tt, "raw", None) is not None:
+            raise NotImplementedError(
+                "checkpoint with a raw: packet stream")
+        b = int(next_block)
+        if self.pipeline_mux:
+            raise NotImplementedError(
+                "checkpoint with pipeline_mux=True: the mux runs one "
+                "block ahead of the dispatched stream")
+        if self._next_block != b:
+            raise RuntimeError(
+                f"checkpoint at block {b} but stream is at "
+                f"{self._next_block}")
+        mux = self.mux
+        src, mux.source = mux.source, None
+        clock = None
+        if tt is not None:
+            clock = tt.service.clock
+            tt.service.clock = None
+        try:
+            snap = copy.deepcopy(mux)
+        finally:
+            mux.source = src
+            if tt is not None:
+                tt.service.clock = clock
+        st = {"version": 1, "next_block": b, "mux": snap}
+        if self.fm_video_statics is not None:
+            st["fm_r"] = self._fm_r[b].cpu().numpy()
+        if self.device_mat:
+            st["pol_c"] = self._pol_c[b].cpu().numpy()
+        return pickle.dumps(st)
 
     def load_checkpoint(self, blob: bytes) -> int:
-        raise NotImplementedError("MAC checkpoints are not ported yet")
+        """Restore checkpoint() state into this (freshly built,
+        identically configured) encoder; returns the block to encode
+        next.  The blob must come from this program: unpickling runs
+        code."""
+        st = pickle.loads(blob)
+        b = st["next_block"]
+        clock = (self.mux.teletext.service.clock
+                 if self.mux.teletext is not None else None)
+        self.mux = st["mux"]
+        self.mux.source = self.source
+        if self.mux.teletext is not None:
+            self.mux.teletext.service.clock = clock
+        if "fm_r" in st:
+            self._fm_r = {b: torch.as_tensor(st["fm_r"],
+                                             device=self.device)}
+        if self.device_mat:
+            if "pol_c" not in st:
+                raise ValueError(
+                    "checkpoint was written by a host-materialise "
+                    "encoder; resume with device_mat disabled")
+            self._pol_c = {b: torch.as_tensor(st["pol_c"],
+                                              device=self.device)}
+        self._next_block = b
+        return b
 
     def encode_block(self, block_no: int) -> np.ndarray:
         """Host int16 samples: [n] for real-baseband modes, interleaved

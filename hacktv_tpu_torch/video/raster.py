@@ -1,9 +1,9 @@
 """Batched raster synthesis: whole blocks of scan lines as tensor ops.
 
 Port of hacktv_tpu/video/raster.py.  The host side (`make_statics`,
-`rgb_to_yuv_host`) stays numpy and builds the same constants; `to_device`
-moves them onto the encoder's device, and `synth_block` renders a
-[n_lines, width] block there:
+`rgb_to_yuv_host`, `build_yuv_lut`) stays numpy and builds the same
+constants; `to_device` moves them onto the encoder's device, and
+`synth_block` renders a [n_lines, width] block there:
 
   sync templates (gather) -> luma placement (where) -> chroma FIR
   -> burst insert -> subcarrier mix (exact int32)
@@ -11,11 +11,18 @@ moves them onto the encoder's device, and `synth_block` renders a
 The colour carrier comes from exact per-line LUT rows when the carrier
 cycle is a whole number of lines (the standard rates), else from angle
 addition against a per-column table.
+
+Moving sources convert on the device: one gather per pixel from the
+reference's 16M-entry RGB -> (Y, U, V) table (`yuv_convert_device`), and
+a block of frames stacks into one plane (`stack_planes`) whose rows
+`synth_block(stacked_h=...)` gathers by absolute index.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -24,6 +31,7 @@ import torch.nn.functional as F
 
 from ..audio.synth import fma32
 from ..config.standards import ColourMode
+from ..ops.cuda_build import BUILD_DIR
 from ..ops.stream_fir import fuse_second
 from .params import VideoParams
 
@@ -204,6 +212,83 @@ def rgb_to_yuv_host(p, rgb: np.ndarray, secam: bool = False):
     return q(yl), q(ul), q(vl)
 
 
+_YUV_LUT_CACHE: dict = {}
+
+
+def make_yuv_lut(p, secam: bool = False) -> np.ndarray:
+    """The reference's full 16M-entry RGB -> (Y, U, V) lookup table
+    (src/video.c:3897-3959), built THROUGH rgb_to_yuv_host, so that
+    LUT[r << 16 | g << 8 | b] is the per-pixel conversion bit for bit:
+    int16 [2^24, 3], about 100 MB."""
+    lut = np.empty((1 << 24, 3), np.int16)
+    chunk = 1 << 20
+    for base in range(0, 1 << 24, chunk):
+        idx = np.arange(base, base + chunk, dtype=np.uint32)
+        rgb = np.empty((1, chunk, 3), np.uint8)
+        rgb[0, :, 0] = idx >> 16
+        rgb[0, :, 1] = (idx >> 8) & 0xFF
+        rgb[0, :, 2] = idx & 0xFF
+        y, u, v = rgb_to_yuv_host(p, rgb, secam)
+        lut[base:base + chunk, 0] = y[0]
+        lut[base:base + chunk, 1] = u[0]
+        lut[base:base + chunk, 2] = v[0]
+    return lut
+
+
+def build_yuv_lut(p, secam: bool = False) -> np.ndarray:
+    """make_yuv_lut, cached per conversion key in the process and on disk
+    in the port's build directory (`_build/yuvlut_<key>.npy`, written
+    whole and renamed into place, so that processes side by side never
+    read half a file)."""
+    conf = p.conf
+    key = (p.gamma, p.rw_co, p.gw_co, p.bw_co, conf.eu_co, conf.ev_co,
+           conf.black_level, conf.white_level, p.level, bool(secam))
+    hit = _YUV_LUT_CACHE.get(key)
+    if hit is not None:
+        return hit
+    tag = hashlib.sha256(repr(key).encode()).hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"yuvlut_{tag}.npy")
+    lut = None
+    if os.path.exists(path):
+        lut = np.load(path)
+        if lut.shape != (1 << 24, 3) or lut.dtype != np.int16:
+            lut = None
+    if lut is None:
+        lut = make_yuv_lut(p, secam)
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp.npy"
+        np.save(tmp, lut)
+        os.replace(tmp, path)
+    if len(_YUV_LUT_CACHE) > 2:
+        _YUV_LUT_CACHE.clear()
+    _YUV_LUT_CACHE[key] = lut
+    return lut
+
+
+def yuv_convert_device(lut: torch.Tensor, rgb_u8: torch.Tensor):
+    """Frames to (Y, U, V) f32 planes on the device: one gather per pixel
+    from the 16M-entry table `lut` (int16 [2^24, 3] on the device), with
+    int32 indices.  rgb_u8 is one frame [H, W, 3] or a stack of frames
+    [NF, H, W, 3]."""
+    c = rgb_u8.to(torch.int32)
+    idx = (c[..., 0] << 16) | (c[..., 1] << 8) | c[..., 2]
+    out = torch.index_select(lut, 0, idx.reshape(-1)).to(torch.float32)
+    out = out.reshape(*idx.shape, 3)
+    return out[..., 0], out[..., 1], out[..., 2]
+
+
+def stack_planes(y, u, v, black_y: float):
+    """[NF, H, W] planes -> [NF (H + 1), W], each frame followed by its
+    black (Y) or zero (U, V) fallback row, so that one absolute row index
+    f (H + 1) + vy (or + H outside the frame) gathers across a block of
+    frames."""
+    NF, H, W = y.shape
+    yb = torch.cat([y, y.new_full((NF, 1, W), black_y)], dim=1)
+    ub = torch.cat([u, u.new_zeros((NF, 1, W))], dim=1)
+    vb = torch.cat([v, v.new_zeros((NF, 1, W))], dim=1)
+    return tuple(a.reshape(NF * (H + 1), W) for a in (yb, ub, vb))
+
+
 def to_device(st: RasterStatics, device) -> RasterStatics:
     """The same statics with every array field a tensor on `device`."""
     def conv(a):
@@ -268,13 +353,22 @@ def synth_block(st: RasterStatics,
                 fsc: torch.Tensor = None,       # long [B] FSC field channel
                 fscf: torch.Tensor = None,      # long [B] FSC flag selector
                 split_chroma: bool = False,
+                stacked_h: int = 0,
                 ):
     """Synthesise a block of lines -> f32 [B, width] (luma+chroma
     composite, int16-scaled).  Lines are independent; the only cross-line
     term is the next line's leading sync tail.  With split_chroma
     (S-Video) the subcarrier is not added but returned as a second
-    [B, width] channel: (composite without chroma, chroma)."""
+    [B, width] channel: (composite without chroma, chroma).  With
+    stacked_h = H + 1 the planes are a block of frames from stack_planes
+    and vy is already the absolute row (f (H + 1) + row, or + H for the
+    fallback row)."""
     y_img, u_img, v_img = yuv
+    if stacked_h:
+        return _synth_rows(st, y_img[vy], u_img[vy], v_img[vy],
+                           (vy % stacked_h) != (stacked_h - 1), base, nxt,
+                           burst, vswitch, al, ar, cos0, sin0, lut_row, prv,
+                           fscf, split_chroma)
     H = y_img.shape[-2]
 
     # Row gather with black fallback (row H)

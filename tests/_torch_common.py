@@ -82,3 +82,67 @@ def jax_runtime():
                 jrt._load_error = None
                 time.sleep(2)
         return jrt.load()
+
+
+class MovingSource:
+    """A moving source from a seed: `nframes` distinct RGB frames (a
+    gradient shifted 24 pixels a frame, with seeded noise), the last held
+    after the end, int16 stereo noise for sound, and one CEA-608 pair a
+    frame.  `saturated` frames are saturated colours, one a frame, which
+    drive the SECAM carrier's phase past 120 rad.  Not
+    stateless: the encoders take the moving path."""
+
+    interlaced = 0
+
+    def __init__(self, width: int, height: int, nframes: int = 12,
+                 seed: int = 5, saturated: bool = False):
+        self.width, self.height = width, height
+        rng = np.random.default_rng(seed)
+        x = np.arange(width)[None, :, None]
+        y = np.arange(height)[:, None, None]
+        if saturated:
+            # whole frames of one colour each; cyan and green take the
+            # carrier's phase past 120 rad within a line
+            cols = np.array([[0, 255, 255], [0, 255, 0], [255, 255, 0],
+                             [0, 0, 255]], np.uint8)
+            self.frames = [np.broadcast_to(cols[f % 4], (height, width, 3)
+                                           ).copy() for f in range(nframes)]
+        else:
+            self.frames = [np.clip(
+                (x + 24 * f) % 256 * np.array([1.0, 0.5, 0.25])
+                + (y % 64) + rng.integers(0, 32, (height, width, 3)),
+                0, 255).astype(np.uint8) for f in range(nframes)]
+        self.noise = rng.integers(-20000, 20000, (32000 * 4, 2)
+                                  ).astype(np.int16)
+
+    def read_video(self, frame_no: int) -> np.ndarray:
+        return self.frames[min(frame_no, len(self.frames) - 1)]
+
+    def read_audio(self, start: int, count: int) -> np.ndarray:
+        idx = (start + np.arange(count)) % len(self.noise)
+        return self.noise[idx]
+
+    def read_cc608(self, frame_no: int):
+        return 0x41 + frame_no % 26, 0x61 + frame_no % 26
+
+
+def pickled_modules(blob: bytes) -> set:
+    """The modules whose classes or functions a pickle refers to."""
+    import io
+    import pickle
+    mods = set()
+
+    class Recorder(pickle.Unpickler):
+        def find_class(self, module, name):
+            mods.add(module)
+            return super().find_class(module, name)
+    Recorder(io.BytesIO(blob)).load()
+    return mods
+
+
+def assert_no_torch(blob: bytes) -> None:
+    """A checkpoint holds numpy and plain Python values only: no torch
+    tensor, no device."""
+    mods = pickled_modules(blob)
+    bad = sorted(m for m in mods if m == "torch" or m.startswith("torch."))
+    assert not bad, f"the blob refers to {bad}"

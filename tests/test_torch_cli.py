@@ -2,10 +2,12 @@
 equals Encoder.encode_block byte for byte, PAL-I with NICAM included, and
 the JAX package's command line byte for byte on each switch that changes
 the mode's configuration, S-Video and --pixelrate among them, and on
-each scrambler switch and ntsc-bs, and on the D/D2-MAC switches
-(Eurocrypt, the cuts, scrambled audio, the MAC audio modes); the
-scramblers' and MAC's checks exit with the JAX command line's messages;
-it refuses what it does not cover."""
+each scrambler switch and ntsc-bs, on the D/D2-MAC switches (Eurocrypt,
+the cuts, scrambled audio, the MAC audio modes), and on the moving
+inputs (raw: files through the fit switches, --repeat/--shuffle, ffmpeg:
+through a fake binary with --ffmt/--fopts, an .avi through OpenCV, MAC
+from a raw: file) and -v; the scramblers' and MAC's checks exit with the
+JAX command line's messages; it refuses what it does not cover."""
 
 from __future__ import annotations
 
@@ -90,13 +92,19 @@ def test_cli_noaudio_and_type(tmp_path):
 
 @pytest.mark.parametrize("argv,exc", [
     (["--eurocrypt", "filmnet"], SystemExit),   # without a MAC mode
-    (["-m", "d2mac-fm", "clip.mp4"], NotImplementedError),  # MAC input
-    (["-m", "pal", "clip.mp4"], NotImplementedError),
+    (["-m", "d2mac-fm", "clip.mp4"], SystemExit),  # a missing input file
+    (["-m", "pal", "clip.mp4"], SystemExit),
 ])
-def test_cli_refuses(argv, exc, tmp_path):
-    with pytest.raises(exc):
+def test_cli_refuses(argv, exc, tmp_path, monkeypatch):
+    """A missing input file exits with the JAX command line's message."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(exc) as e:
         cli.main(argv + ["--frames", "1", "--device", "cpu", "-o",
                          str(tmp_path / "x.bin")])
+    if "clip.mp4" in argv:
+        with pytest.raises(SystemExit) as ej:
+            jcli.main(argv + ["--frames", "1", "-o", str(tmp_path / "j")])
+        assert str(e.value.code) == str(ej.value.code)
 
 
 @pytest.mark.parametrize("argv", [
@@ -301,3 +309,176 @@ def test_cli_mac_exits_match_jax(tmp_path, argv):
                                     if main is cli.main else []))
         msgs.append(str(e.value.code))
     assert msgs[0] == msgs[1] and msgs[0]
+
+
+# -- moving inputs --------------------------------------------------------
+FAKE = os.path.join(REPO, "tests", "data", "fake_ffmpeg.py")
+
+
+def raw_clip(tmp_path, w=120, h=90, n=5):
+    """A raw RGB32 file of n seeded moving frames with its .pcm sound;
+    returns its raw: input spec."""
+    src = tc.MovingSource(w, h, nframes=n, seed=9)
+    px = np.stack([(f.astype(np.uint32) << np.array([16, 8, 0], np.uint32)
+                    ).sum(-1, dtype=np.uint32) for f in src.frames])
+    path = tmp_path / "clip.raw"
+    px.tofile(path)
+    src.noise[:40000].tofile(str(path) + ".pcm")
+    return f"raw:{path}:{w}x{h}"
+
+
+def both_clis(tmp_path, argv, inputs):
+    """The port's and the JAX package's command lines on the same
+    arguments and inputs; returns both outputs' bytes."""
+    out_t, out_j = tmp_path / "t.bin", tmp_path / "j.bin"
+    assert cli.main(argv + ["--device", "cpu", "-o", str(out_t)]
+                    + inputs) == 0
+    assert jcli.main(argv + ["-o", str(out_j)] + inputs) == 0
+    return out_t.read_bytes(), out_j.read_bytes()
+
+
+def assert_same_bytes(got, ref):
+    assert len(got) == len(ref) > 0, (len(got), len(ref))
+    ndiff = np.count_nonzero(np.frombuffer(got, np.int16)
+                             != np.frombuffer(ref, np.int16))
+    assert got == ref, f"{ndiff} samples differ"
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m", "pal", "-s", "4000000", "--frames", "3"],
+    ["-m", "pal", "-s", "4000000", "--fit", "fit", "--frames", "2",
+     "--frames-per-block", "2"],
+    ["-m", "pal", "-s", "4000000", "--letterbox", "--frames-per-block",
+     "2"],
+    ["-m", "pal", "-s", "4000000", "--pillarbox", "--fit", "fill",
+     "--frames", "2"],
+    ["-m", "pal", "-s", "4000000", "--fit", "fill", "--min-aspect",
+     "14:9", "--max-aspect", "1.6", "--frames", "2"],
+    ["-m", "i", "--filter", "--fit", "none", "--frames", "2",
+     "--frames-per-block", "2"],
+    ["-m", "secam", "-s", "4000000", "--frames", "2"],
+], ids=["default", "fit", "letterbox-to-eof", "pillarbox-fill",
+        "aspect-limits", "i-filter-none", "secam-one-frame-blocks"])
+def test_cli_raw_input_matches_jax_cli(tmp_path, argv):
+    """A raw: file (120x90, 5 frames, with sound) through the fit
+    switches; without --frames the stream runs to the file's end (6
+    frames in 2-frame blocks)."""
+    if argv[1] == "i":
+        tc.jax_runtime()
+    got, ref = both_clis(tmp_path, argv, [raw_clip(tmp_path)])
+    assert_same_bytes(got, ref)
+    if "--frames" not in argv:
+        # real output (no sound carrier at 4 MS/s): one int16 a sample
+        assert len(got) == 6 * 160_000 * 2
+
+
+@pytest.mark.parametrize("flags", [["-r"], ["--shuffle"],
+                                   ["--repeat", "--shuffle"]])
+def test_cli_repeat_shuffle_matches_jax_cli(tmp_path, flags):
+    """Two raw: inputs of 3 and 2 frames, one-frame blocks, sequenced and
+    looped or shuffled (RandomState(1)) over 12 frames."""
+    for d in ("a", "b"):
+        (tmp_path / d).mkdir()
+    a = raw_clip(tmp_path / "a", n=3)
+    b = raw_clip(tmp_path / "b", w=64, h=64, n=2)
+    argv = ["-m", "pal", "-s", "4000000", "--frames", "12",
+            "--frames-per-block", "1"] + flags
+    got, ref = both_clis(tmp_path, argv, [a, b])
+    assert_same_bytes(got, ref)
+
+
+def test_cli_ffmpeg_input_matches_jax_cli(tmp_path, monkeypatch):
+    """ffmpeg:PATH through a fake ffmpeg binary on PATH (probe, video and
+    audio pipes, the in-stream A53 captions for --cc608) with --ffmt and
+    --fopts: the same bytes, and the same ffmpeg calls."""
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    wrap = bindir / "ffmpeg"
+    wrap.write_text(f"#!{sys.executable}\n" + open(FAKE).read())
+    wrap.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bindir}:{os.environ['PATH']}")
+    calls = []
+    outs = []
+    for i, main in enumerate((cli.main, jcli.main)):
+        d = tmp_path / str(i)
+        d.mkdir()
+        inp = d / "captioned.avi"
+        inp.write_bytes(b"fake")
+        out = d / "out.bin"
+        argv = ["-m", "ntsc", "-s", "13500000", "--cc608", "--frames", "4",
+                "--frames-per-block", "2", "--ffmt", "avi", "--fopts",
+                "probesize=32", "-o", str(out), f"ffmpeg:{inp}"]
+        assert main(argv + (["--device", "cpu"] if i == 0 else [])) == 0
+        outs.append(out.read_bytes())
+        calls.append(sorted((d / "captioned.avi.calls").read_text()
+                            .replace(str(d), "").splitlines()))
+    assert calls[0] == calls[1]
+    assert any("-f avi -probesize 32 -i" in c for c in calls[0])
+    assert_same_bytes(*outs)
+
+
+def test_cli_avi_input_matches_jax_cli(tmp_path):
+    """An MJPEG .avi as a bare path, decoded by OpenCV (no ffmpeg binary
+    on PATH here), fitted with --fit fit."""
+    cv2 = pytest.importorskip("cv2")
+    import shutil
+    if shutil.which("ffmpeg"):
+        pytest.skip("an ffmpeg binary on PATH would take the input")
+    avi = tmp_path / "m.avi"
+    wr = cv2.VideoWriter(str(avi), cv2.VideoWriter_fourcc(*"MJPG"), 25,
+                         (64, 48))
+    for f in range(4):
+        img = np.zeros((48, 64, 3), np.uint8)
+        img[:, :, 2] = 50 * f + 20
+        img[:, :32, 1] = 200
+        wr.write(img)
+    wr.release()
+    got, ref = both_clis(tmp_path, ["-m", "pal", "-s", "4000000", "--fit",
+                                    "fit", "--frames", "3"], [str(avi)])
+    assert_same_bytes(got, ref)
+
+
+def test_cli_mac_raw_input_matches_jax_cli(tmp_path):
+    """D2-MAC from a raw: file: one-frame blocks, the MAC display pair
+    4:3/16:9 in the fit."""
+    tc.jax_runtime()
+    got, ref = both_clis(tmp_path, ["-m", "d2mac", "-s", "20250000",
+                                    "--frames", "2"], [raw_clip(tmp_path)])
+    assert_same_bytes(got, ref)
+
+
+def test_cli_verbose_version_profile(tmp_path, capsys):
+    """-v prints the JAX command line's mode report; --version names the
+    port; --profile writes a torch.profiler trace; --threads is
+    accepted."""
+    argv = ["-m", "pal", "-s", "4000000", "--frames", "1", "-v",
+            "--threads"]
+    assert cli.main(argv + ["--device", "cpu", "--profile",
+                            str(tmp_path / "prof"), "-o",
+                            str(tmp_path / "t.bin"), "test"]) == 0
+    err_t = capsys.readouterr().err
+    assert jcli.main(argv + ["-o", str(tmp_path / "j.bin"), "test"]) == 0
+    err_j = capsys.readouterr().err
+    head = lambda e: [ln for ln in e.splitlines()
+                      if ln.split(":")[0] in ("Mode", "Video",
+                                              "Sample rate")]
+    assert head(err_t) == head(err_j) and len(head(err_t)) == 3
+    assert "realtime" in err_t
+    assert (tmp_path / "prof" / "hacktv_tpu_torch_trace.json").stat(
+        ).st_size > 0
+    assert cli.main(["--version"]) == 0
+    assert "hacktv_tpu_torch" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--devices", "2"], ["--hosts", "2"],
+                                  ["-f", "855250000"], ["--fl2k-audio",
+                                                        "stereo"]],
+                         ids=lambda a: a[0].lstrip("-"))
+def test_cli_unported_switches_refused(tmp_path, capsys, argv):
+    """More than one card, --hosts and the hardware sinks' switches stay
+    refused by the parser (exit 2, naming the switch)."""
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv + ["--frames", "1", "--device", "cpu", "-o",
+                         str(tmp_path / "x.bin"), "test"])
+    assert e.value.code == 2
+    assert argv[0] in capsys.readouterr().err

@@ -7,8 +7,10 @@ the encoder (the legacy raster modes, S-Video, --pixelrate, the VBI
 services, the scramblers and DANCE among its configurations), DANCE's
 two-part pulse product under TF32, the scramblers' applies and the
 D/D2-MAC encoders (their f64 duobinary products with TF32 on and off,
-the cuts, Eurocrypt, teletext, the resampler, the pipelined multiplex) on
-the card against their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
+the cuts, Eurocrypt, teletext, the resampler, the pipelined multiplex),
+moving sources in 4-frame blocks and the LUT gather, and checkpoints
+written on one device and resumed on the other, on the card against
+their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -584,3 +586,99 @@ def test_mac_products_card_exact(cuda):
              s32[2:4098] @ f32[0])
     for g, r, p in zip(got, ref, plain):
         assert torch.equal(g.cpu(), r) and torch.equal(r, p)
+
+
+MOVING_CASES = {
+    "i-filter": ("i", 16_000_000, {"vfilter": True}),
+    "pal": ("pal", 16_000_000, {}),
+    "l-filter": ("l", 16_000_000, {"vfilter": True}),
+    "pal-fm": ("pal-fm", 20_250_000, {}),
+    "i-pixelrate": ("i", 16_000_000, {"pixel_rate": 14_750_000}),
+    "pal-svideo": ("pal", 16_000_000, {"s_video": True}),
+    "ntsc-cc608": ("ntsc", 13_500_000, {"cc608": True}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MOVING_CASES))
+def test_moving_card_matches_cpu(cuda, name):
+    """A moving source (seeded frames, saturated for SECAM), 4-frame
+    blocks 0-1: the frames stack and convert through the LUT on the card
+    (SECAM on one frame a block, with glibc's large-argument sin/cos),
+    card against CPU."""
+    mode, rate, kw = MOVING_CASES[name]
+    kw = dict(kw)
+    conf = get_mode(mode)
+    if kw.pop("s_video", False):
+        conf = replace(conf, s_video=True)
+    p = VideoParams.create(conf, rate, kw.get("pixel_rate", 0))
+    src = tc.MovingSource(p.active_width, conf.active_lines,
+                          saturated=mode == "l")
+    _card_vs_cpu(cuda, name, lambda d: Encoder(
+        conf, rate, source=src, frames_per_block=4, device=d, **kw), 2)
+
+
+def test_moving_lut_gather_card(cuda):
+    """The LUT gather of a 6-frame stack on the card against the host
+    conversion, value for value."""
+    p = VideoParams.create(get_mode("i"), 16_000_000)
+    lut = torch.as_tensor(raster.build_yuv_lut(p), device=cuda)
+    src = tc.MovingSource(p.active_width, 576)
+    stack = np.stack([src.read_video(f) for f in range(6)])
+    got = raster.yuv_convert_device(lut, torch.as_tensor(stack,
+                                                         device=cuda))
+    ref = raster.rgb_to_yuv_host(p, stack)
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.cpu().numpy(), r)
+
+
+CHECKPOINT_CASES = {
+    "pal-i": ("i", 16_000_000, {}),
+    "secam-l-vsb": ("l", 16_000_000, {"vfilter": True}),
+    "pal-fm-preemph": ("pal-fm", 20_250_000, {"vfilter": True}),
+    "i-videocrypt-vsb": ("i", 16_000_000, {"vfilter": True,
+                                           "videocrypt": "free"}),
+    "i-sis": ("i", 16_000_000, {"sis": "dcsis"}),
+    "pal-i-teletext-vsb": ("i", 16_000_000, {
+        "vfilter": True, "wss": "16:9", "vits": True, "vitc": True,
+        "teletext": os.path.join(os.path.dirname(__file__), "data",
+                                 "demo.tti"), "teletext_clock": _tt_clock}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CHECKPOINT_CASES))
+def test_checkpoint_card_resumes_on_cpu(cuda, name):
+    """4-frame blocks: a checkpoint at block 2 written on the card
+    resumes on the CPU and one written on the CPU resumes on the card,
+    each to the continuous stream (blocks 2-3)."""
+    mode, rate, kw = CHECKPOINT_CASES[name]
+    mk = lambda d: Encoder(mode, rate, frames_per_block=4, device=d, **kw)
+    for writer, reader in ((cuda, "cpu"), ("cpu", cuda)):
+        full = mk(writer)
+        ref = [full.encode_block(b) for b in range(4)]
+        a = mk(writer)
+        for b in range(2):
+            a.encode_block(b)
+        blob = a.checkpoint(2)
+        tc.assert_no_torch(blob)
+        r = mk(reader)
+        assert r.load_checkpoint(blob) == 2
+        for b in (2, 3):
+            _, mx, nd = tc.error_report(r.encode_block(b), ref[b])
+            assert nd == 0, f"{name} {writer}->{reader} block {b}: {nd}"
+
+
+def test_mac_checkpoint_card_resumes_on_cpu(cuda):
+    """D2-MAC FM with Eurocrypt: the card's checkpoint resumes on the CPU
+    to the card's continuous stream."""
+    kw = {"eurocrypt": "filmnet", "scramble_audio": True}
+    full = _mac("d2mac-fm", kw, cuda, fpb=4)
+    ref = [full.encode_block(b) for b in range(4)]
+    a = _mac("d2mac-fm", kw, cuda, fpb=4)
+    for b in range(2):
+        a.encode_block(b)
+    blob = a.checkpoint(2)
+    tc.assert_no_torch(blob)
+    r = _mac("d2mac-fm", kw, "cpu", fpb=4)
+    assert r.load_checkpoint(blob) == 2
+    for b in (2, 3):
+        assert np.array_equal(r.encode_block(b), ref[b]), b

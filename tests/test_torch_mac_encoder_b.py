@@ -148,15 +148,16 @@ def test_create_encoder_matches_jax(mode, kw):
 
 
 def test_refusals():
-    """Out-of-order blocks, a raster mode, checkpoints and more than one
-    device are refused; Encoder refuses a MAC mode (hacktv_tpu's Encoder
-    fails on it too)."""
+    """Out-of-order blocks, a raster mode, a checkpoint at another block
+    than the stream's next (tests/test_torch_checkpoint_b.py has the rest)
+    and more than one device are refused; Encoder refuses a MAC mode
+    (hacktv_tpu's Encoder fails on it too)."""
     t = tmac.MacEncoder("d2mac", RATE, device="cpu")
     t.encode_block_device(0)
     with pytest.raises(RuntimeError, match="sequentially"):
         t.encode_block_device(2)
-    with pytest.raises(NotImplementedError):
-        t.checkpoint(1)
+    with pytest.raises(RuntimeError, match="stream is at 1"):
+        t.checkpoint(2)
     with pytest.raises(ValueError, match="D/D2-MAC"):
         tmac.MacEncoder("pal", RATE, device="cpu")
     with pytest.raises(ValueError, match="MacEncoder"):

@@ -153,10 +153,11 @@ def test_secam_blocks_must_be_sequential():
 
 @pytest.mark.parametrize("kw", [{"pixel_rate": 13_500_000},
                                 {"devices": ["cuda:0", "cuda:1"]},
-                                {"moving": True}])
+                                {"moving": True, "pixel_rate": 13_500_000}])
 def test_unported_secam_options_raise(kw):
     """SECAM with the video resampler (--pixelrate, which the JAX package
-    cannot run either), on several devices and with a moving-video source
+    cannot run either), also from a moving-video source (which SECAM
+    takes without it, tests/test_torch_moving.py), and on several devices
     raise; none falls back to another path."""
     kw = dict(kw)
     conf = tget_mode("l")
