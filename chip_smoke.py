@@ -125,12 +125,27 @@ Phases, one line each (any failure exits non-zero before the result):
      checkpoint: seven e2e paths at 4 frames a block checkpointed at
      block 2 on the card and resumed on the card and on the CPU, blocks
      2-3 against the continuous run (0 differing values required);
- 12. the command line, 4 frames each of -m i, -m i --filter with
+ 12. hw-sink: the hardware sinks fed from the card, each pulled by
+     PacedLib, a fake libhackrf/libosmo-fl2k whose thread calls the
+     driver's ctypes callback at the device's clock (262,144-byte HackRF
+     transfers, 1,310,720-sample FL2K transfers): pal-i-vsb through the
+     command line (-m i --filter -f 855250000 -g 47 -o hackrf, 200 frames,
+     rf/hardware.py's _find_lib returning the fake while it runs),
+     i-moving-vsb through open_sink("hackrf") at 8 and at 64 frames a
+     block (192 frames of the moving file), pal-lowpass through
+     open_sink("fl2k") (112 frames, fir_real).  Each run's seconds of
+     signal and wall seconds, underruns before and after the FIFO's
+     prefill, the longest shortfall, the FIFO's lowest level after the
+     prefill, the callback's p99 lateness, bytes pulled and launches.  A
+     run with no underrun after the prefill must pull the producer's
+     conversion of its blocks; pal-i-vsb must have none;
+ 13. the command line, 4 frames each of -m i, -m i --filter with
      teletext, WSS, VITS and VITC, -m pal-fm --filter, -m pal --s-video
      --filter, -m i --pixelrate 14750000, -m i --filter --videocrypt
      free, -m ntsc-bs, -m d2mac-fm --eurocrypt ctv and -m dmac
      --double-cut, and 128 frames of the moving file with -m i --filter
-     (and --letterbox), to files through the native sink.
+     (and --letterbox), to files through the native sink; and -o hackrf
+     with no HackRF: a non-zero exit naming libhackrf, no file.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.  With --profile DIR, one block of each
@@ -140,12 +155,14 @@ path is traced with torch.profiler and its kernel times written to DIR.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 
@@ -282,6 +299,17 @@ MOTION_SIZE = (720, 576)
 MOTION_SEED = 2024
 MOTION = {}                    # "path": the file, while the run lasts
 MOVING_PATHS = {"i-moving-vsb": ("i", 16_000_000, True, {})}
+# the hw-sink phase: libhackrf's transfer (bytes) and libosmo-fl2k's
+# FL2K_BUF_LEN (samples a channel); the command line's pal-i-vsb run (8 s
+# of signal in its 16-frame blocks); the frames of the moving runs and
+# their frames a block, and the frames of the FL2K run
+HACKRF_TRANSFER = 262_144
+FL2K_TRANSFER = 1_310_720
+HW_SINK_CLI = ["-m", "i", "--filter", "-f", "855250000", "-g", "47", "-o",
+               "hackrf", "--frames", "200", "test"]
+HW_MOVING_FRAMES = 192
+HW_MOVING_FPB = (8, 64)
+HW_LOWPASS_FRAMES = 112
 # the moving phase: card against CPU on the moving file, MOVING_FPB-frame
 # blocks 0-3 (SECAM on one frame a block, glibc's large sin/cos)
 MOVING_FPB = 4
@@ -1508,6 +1536,20 @@ def cli_phase() -> None:
                      f"{4 * frame_values * 2}")
             if not np.any(data):
                 fail(f"cli {args} wrote only zeros")
+    # -o hackrf on a machine with no HackRF: a non-zero exit naming the
+    # library (or the device that did not answer), and no file
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["-m", "i", "--frames", "1", "-o", "hackrf", "test"]
+        r = subprocess.run(
+            [sys.executable, "-m", "hacktv_tpu_torch", *args], cwd=tmp,
+            capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": HERE})
+        named = "libhackrf" in r.stderr or "hackrf:" in r.stderr
+        phase("cli", args="".join(args), exit=r.returncode,
+              names_hackrf=named, files=len(os.listdir(tmp)))
+        if r.returncode == 0 or not named or os.listdir(tmp):
+            fail(f"cli {args}: exit {r.returncode}, files "
+                 f"{os.listdir(tmp)}: {r.stderr[-2000:]}")
 
 
 def moving_cli_phase() -> None:
@@ -1537,6 +1579,354 @@ def moving_cli_phase() -> None:
             os.remove(out)
 
 
+# ---------------------------------------------------------------------------
+# hw-sink: the hardware sinks fed from the card at the device's own pace
+
+
+class PacedLib:
+    """A vendor library with libhackrf's and libosmo-fl2k's entry points
+    whose TX thread calls the driver's ctypes callback at the device's
+    clock: HackRF transfers of HACKRF_TRANSFER bytes, one every
+    HACKRF_TRANSFER / (2 * rate) s, or FL2K transfers of FL2K_TRANSFER
+    samples on each of R, G and B, one every FL2K_TRANSFER / rate s.  The
+    schedule is monotonic (transfer k is due at t0 + k * period) and
+    catches up when late; each transfer's lateness and offset are kept.
+
+    The thread waits for `arm(probe)`, called once the sink is open;
+    `probe()` gives the sink's (underruns, FIFO level) after each
+    transfer.  A transfer that adds no underrun marks the prefill: from
+    there on the pulled bytes (HackRF: the int8 stream; FL2K: R, whose
+    FIFO has the prefill) are kept for the check against the producer,
+    with the lowest FIFO level and the underruns after it.  `wall` is
+    the time from arm to stop."""
+
+    def __init__(self, rate: int):
+        self.rate = int(rate)
+        self._armed = threading.Event()
+        self._halt = threading.Event()
+        self._thread = None
+        self.probe = None
+        self.late = []              # seconds past each transfer's time
+        self.offsets = []           # each transfer's first byte (sample)
+        self.pulled = 0             # bytes, every channel
+        self.prefill_at = None      # the first transfer after the prefill
+        self.under_before = 0
+        self.under_total = 0
+        self.fifo_min = None
+        self.kept = []              # the pulled transfers past the prefill
+        self.under_at = []          # seconds after arm of each underrun
+                                    # after the prefill
+        self.error = None
+        self._t_arm = None
+        self.wall = None
+
+    def arm(self, probe) -> None:
+        self.probe = probe
+        self._t_arm = time.monotonic()
+        self._armed.set()
+
+    # libhackrf
+    def hackrf_init(self):
+        return 0
+
+    def hackrf_open_by_serial(self, serial, dev):
+        dev._obj.value = 1
+        return 0
+
+    def hackrf_version_string_read(self, dev, buf, n):
+        buf.value = b"paced-fake"
+        return 0
+
+    def hackrf_compute_baseband_filter_bw(self, rate):
+        return 1_750_000
+
+    def hackrf_set_sample_rate_manual(self, *a):
+        return 0
+
+    hackrf_set_baseband_filter_bandwidth = hackrf_set_sample_rate_manual
+    hackrf_set_freq = hackrf_set_sample_rate_manual
+    hackrf_set_txvga_gain = hackrf_set_sample_rate_manual
+    hackrf_set_amp_enable = hackrf_set_sample_rate_manual
+    hackrf_close = hackrf_set_sample_rate_manual
+    hackrf_exit = hackrf_set_sample_rate_manual
+
+    def hackrf_start_tx(self, dev, cb, ctx):
+        self._start(self._run_hackrf, cb)
+        return 0
+
+    def hackrf_stop_tx(self, dev):
+        self._stop()
+        return 0
+
+    # libosmo-fl2k
+    def fl2k_open(self, dev, index):
+        dev._obj.value = 1
+        return 0
+
+    def fl2k_start_tx(self, dev, cb, ctx, buf_num):
+        self._start(self._run_fl2k, cb)
+        return 0
+
+    def fl2k_set_sample_rate(self, dev, rate):
+        return 0
+
+    def fl2k_stop_tx(self, dev):
+        self._stop()
+        return 0
+
+    fl2k_close = fl2k_set_sample_rate
+
+    def _start(self, run, cb):
+        self._thread = threading.Thread(target=self._guard, args=(run, cb),
+                                        daemon=True)
+        self._thread.start()
+
+    def _stop(self):
+        if self._t_arm is not None:
+            self.wall = time.monotonic() - self._t_arm
+        self._halt.set()
+        self._armed.set()
+        if self._thread is not None:
+            self._thread.join(timeout=60)
+
+    def _guard(self, run, cb):
+        try:
+            run(cb)
+        except Exception as e:        # reported by the phase
+            self.error = e
+
+    def _transfers(self, period):
+        """Yield at each transfer's time until stopped."""
+        self._armed.wait()
+        t0 = time.monotonic()
+        k = 0
+        while not self._halt.is_set():
+            due = t0 + k * period
+            now = time.monotonic()
+            if now < due:
+                if self._halt.wait(due - now):
+                    return
+                now = time.monotonic()
+            self.late.append(now - due)
+            yield k
+            k += 1
+
+    def _after(self, data: bytes) -> None:
+        under, level = self.probe()
+        if self.prefill_at is not None and under != self.under_total:
+            self.under_at.append(time.monotonic() - self._t_arm)
+        if self.prefill_at is None:
+            if under == self.under_total:
+                self.prefill_at = len(self.offsets) - 1
+                self.under_before = under
+        if self.prefill_at is not None:
+            self.kept.append(data)
+            self.fifo_min = (level if self.fifo_min is None
+                             else min(self.fifo_min, level))
+        self.under_total = under
+
+    def _run_hackrf(self, cb):
+        n = HACKRF_TRANSFER
+        t = cb.argtypes[0]._type_()
+        buf = (ctypes.c_uint8 * n)()
+        t.buffer = ctypes.cast(buf, ctypes.POINTER(ctypes.c_uint8))
+        t.buffer_length = t.valid_length = n
+        for k in self._transfers(n / (2 * self.rate)):
+            self.offsets.append(k * n)
+            if cb(ctypes.pointer(t)) != 0:      # the end of the stream
+                return
+            self.pulled += n
+            self._after(bytes(buf))
+
+    def _run_fl2k(self, cb):
+        n = FL2K_TRANSFER
+        info = cb.argtypes[0]._type_()
+        for k in self._transfers(n / self.rate):
+            self.offsets.append(k * n)
+            info.len = n
+            cb(ctypes.pointer(info))
+            self.pulled += 3 * n
+            self._after(ctypes.string_at(info.r_buf, n))
+
+
+def attach(sink, lib, kind: str, produced: list) -> None:
+    """Arm the paced library on an open sink: its probe, and the
+    producer's side, the sink's own conversion of every block written
+    (HackRF: int8 pairs; FL2K: R, the I channel)."""
+    from hacktv_tpu_torch import runtime
+    write = sink.write
+    if kind == "hackrf":
+        probe = lambda: (sink.underruns, sink.fifo.level())
+        conv = lambda iq: runtime.convert_hackrf_iq8(iq.reshape(-1))
+    else:
+        probe = lambda: (sink.underruns, sink.fifo_r.level())
+        conv = lambda iq: runtime.convert_fl2k_u8(iq, 0)
+
+    def recorded(iq):
+        produced.append(conv(np.ascontiguousarray(iq, np.int16)).tobytes())
+        write(iq)
+    sink.write = recorded
+    lib.arm(probe)
+
+
+def feed(enc, sink, frames: int) -> None:
+    """The command line's loop over a sink: block b + 1 queued on the card
+    before block b is collected and written, the block's 32 kHz sound to
+    the sink's audio side-channel; then the sink closed."""
+    fpb = enc.frames_per_block
+    pending, block = None, 0
+    while True:
+        nxt = None
+        if block * fpb < frames:
+            nxt = (block, enc.encode_block_device(block))
+            block += 1
+        if pending is not None:
+            b0, dev = pending
+            out = enc.collect_block(b0, dev)
+            if out.ndim == 1:
+                out = np.stack([out, np.zeros_like(out)], axis=-1)
+            sink.write(out)
+            pcm = enc.block_audio_pcm(b0)
+            if pcm is not None and len(pcm):
+                sink.write_audio(pcm)
+        pending = nxt
+        if pending is None:
+            break
+    sink.close()
+
+
+def hw_sink_run(sf, name: str, kind: str, rate: int, frames: int,
+                fir: str, drive, gate_underruns: bool = False) -> int:
+    """One run of the hw-sink phase: drive(lib, produced) feeds a sink of
+    `kind` on a PacedLib and returns it, closed; the run's line, and the
+    gates (with gate_underruns, an underrun after the prefill fails the
+    run).  Returns the count of the run's `fir` launches."""
+    import contextlib
+    import hashlib
+    import io
+    lib = PacedLib(rate)
+    produced = []
+    for c in (sf.fir_cplx, sf.fir_real):
+        c.launches = 0
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        sink = drive(lib, produced)
+    launches = {c.__name__: c.launches for c in (sf.fir_cplx, sf.fir_real)}
+    if lib.error is not None:
+        fail(f"hw-sink {name}: the paced callback raised {lib.error!r}")
+    if lib._thread is None or lib._thread.is_alive():
+        fail(f"hw-sink {name}: the transfer thread did not stop")
+    after = lib.under_total - lib.under_before
+    late = np.array(lib.late) * 1e3
+    # the pulled stream past its leading zero-fill against the producer's
+    # conversion of the blocks (a prefix: the sink stops the device at
+    # close, with the FIFO's rest unsent)
+    compared, verdict = 0, "skipped (underruns after the prefill)"
+    if lib.prefill_at is None:
+        verdict = "nothing pulled past the prefill"
+    elif after == 0:
+        got = hashlib.sha256()
+        for data in lib.kept:
+            got.update(data)
+        compared = sum(len(d) for d in lib.kept)
+        stream = b"".join(produced)
+        ref = hashlib.sha256(stream[:compared])
+        verdict = ("equal" if compared <= len(stream)
+                   and got.hexdigest() == ref.hexdigest() else "differs")
+    bpsamp = 2 if kind == "hackrf" else 1
+    fifo_min = lib.fifo_min
+    phase("hw-sink", run=name, sink=kind, signal_s=f"{frames / 25:.2f}",
+          wall_s=f"{lib.wall:.2f}", transfers=len(lib.offsets),
+          underruns_before_prefill=lib.under_before,
+          underruns_after_prefill=after,
+          # the FL2K sink keeps no shortfall length
+          longest_shortfall_bytes=getattr(sink, "longest_shortfall", "-"),
+          fifo_min_after_prefill_bytes=fifo_min,
+          fifo_min_after_prefill_s=(
+              f"{fifo_min / (bpsamp * rate):.3f}" if fifo_min is not None
+              else "-"),
+          late_p99_ms=f"{np.percentile(late, 99):.3f}" if len(late) else "-",
+          late_max_ms=f"{late.max():.3f}" if len(late) else "-",
+          underruns_after_prefill_at_s=(
+              f"{lib.under_at[0]:.2f}-{lib.under_at[-1]:.2f}"
+              if lib.under_at else "-"),
+          bytes_pulled=lib.pulled, compared_bytes=compared, stream=verdict,
+          launches=json.dumps(launches).replace(" ", ""),
+          stderr_U=err.getvalue().count("U"), card=json.dumps(CARD["smi"]))
+    other = err.getvalue().replace("U", "").strip()
+    if other:
+        print(f"  {name} stderr: {other[-2000:]}")
+    if not launches[fir]:
+        fail(f"hw-sink {name}: {fir} was not launched")
+    if verdict.startswith("differs") or verdict.startswith("nothing"):
+        fail(f"hw-sink {name}: the pulled stream {verdict}")
+    if gate_underruns and after:
+        fail(f"hw-sink {name}: {after} underruns after the prefill")
+    return launches[fir]
+
+
+def hw_sink_phase(sf) -> dict:
+    """The hardware sinks at full width, paced by PacedLib at the
+    device's clock: pal-i-vsb through the command line (-m i --filter -f
+    855250000 -g 47 -o hackrf, 200 frames in its 16-frame blocks, with
+    hardware._find_lib returning the paced library), i-moving-vsb through
+    open_sink("hackrf") at 8 and at 64 frames a block (HW_MOVING_FRAMES
+    frames of the moving file), and pal-lowpass through open_sink("fl2k")
+    (HW_LOWPASS_FRAMES frames, real output: fir_real).  pal-i-vsb must
+    show no underrun after the prefill; every run without one must pull
+    the producer's bytes.  Returns each run's e2e path and launches."""
+    from hacktv_tpu_torch import cli
+    from hacktv_tpu_torch.rf import hardware
+    counts = {}
+
+    def via_cli(lib, produced):
+        find, open_sink = hardware._find_lib, hardware.open_sink
+        opened_sinks = []
+
+        def opened(*a, **kw):
+            sink = open_sink(*a, **kw)
+            attach(sink, lib, "hackrf", produced)
+            opened_sinks.append(sink)
+            return sink
+        hardware._find_lib = lambda names: lib
+        hardware.open_sink = opened
+        try:
+            rc = cli.main(HW_SINK_CLI)
+        finally:
+            hardware._find_lib, hardware.open_sink = find, open_sink
+        if rc != 0 or len(opened_sinks) != 1:
+            fail(f"hw-sink: the command line exited {rc}")
+        return opened_sinks[0]
+    counts["pal-i-vsb-cli"] = ("pal-i-vsb", hw_sink_run(
+        sf, "pal-i-vsb-cli", "hackrf", 16_000_000,
+        int(HW_SINK_CLI[HW_SINK_CLI.index("--frames") + 1]), "fir_cplx",
+        via_cli, gate_underruns=True))
+
+    def via_open_sink(path, fpb, kind, frames):
+        def drive(lib, produced):
+            enc, rate, _ = make_path(path, "cuda", fpb)
+            complex_out = enc.complex_out
+            sink = hardware.open_sink(
+                kind, None, rate, frequency=855_250_000, gain=47,
+                complex_out=complex_out, baseband=not complex_out,
+                fl2k_audio="none", lib=lib)
+            attach(sink, lib, kind, produced)
+            feed(enc, sink, frames)
+            return sink
+        return drive
+    for fpb in HW_MOVING_FPB:
+        name = f"i-moving-vsb-{fpb}f"
+        counts[name] = ("i-moving-vsb", hw_sink_run(
+            sf, name, "hackrf", 16_000_000, HW_MOVING_FRAMES, "fir_cplx",
+            via_open_sink("i-moving-vsb", fpb, "hackrf", HW_MOVING_FRAMES)))
+        torch.cuda.empty_cache()
+    counts["pal-lowpass-fl2k"] = ("pal-lowpass", hw_sink_run(
+        sf, "pal-lowpass-fl2k", "fl2k", 16_000_000, HW_LOWPASS_FRAMES,
+        "fir_real", via_open_sink("pal-lowpass", 16, "fl2k",
+                                  HW_LOWPASS_FRAMES)))
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", default=None, metavar="DIR")
@@ -1544,7 +1934,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device")
     sys.path.insert(0, HERE)
-    import threading
 
     from hacktv_tpu_torch import runtime
     from hacktv_tpu_torch.config import get_mode
@@ -1603,6 +1992,10 @@ def main() -> int:
             if not rec["launches"]:
                 fail(f"{path}: {rec['name']} was not launched on the main "
                      "path")
+        sink_counts = hw_sink_phase(sf)
+        for path, rec in recs:
+            rec["hw_sink_launches"] = {
+                run: n for run, (p, n) in sink_counts.items() if p == path}
         cpu_compare_phase()
         mac_compare_phase()
         moving_phase()

@@ -28,16 +28,22 @@ services --teletext PATH, --wss MODE, --vits, --vitc, --cc608, --acp and
 --single-cut, --double-cut, --eurocrypt MODE, --ec-mat-rating N, --ec-ppv
 [PPV], --nodate, --showecm, --scramble-audio, --chid ID and
 --mac-audio-{stereo,mono,high-quality,medium-quality,companded,linear,
-l1-protection,l2-protection}, -t TYPE, -o FILE, --frames N, --seconds S,
+l1-protection,l2-protection}, -t TYPE, -o OUTPUT, the hardware sinks'
+-f/--frequency HZ, -g/--gain DB, -A/--amp, --antenna NAME and
+--fl2k-audio {none,stereo,spdif}, --frames N, --seconds S,
 --frames-per-block N and --device {cuda,cpu}.  The MAC modes run
 video/mac.py's MacEncoder.  The run stops at --frames/--seconds, or when
 the inputs end.
 HACKTV_TPU_TELETEXT_TIME=<unix seconds> fixes the teletext clock, as for
-hacktv_tpu, so that a run is deterministic.  The output goes through the
-native runtime's threaded file sink (runtime.NativeFileSink), built at
-first use; without a C++ compiler it raises.  Any other switch is refused;
-modes and options that the port does not cover yet raise
-NotImplementedError.
+hacktv_tpu, so that a run is deterministic.  `-o hackrf[:SERIAL]`,
+`soapysdr[:ARGS]` and `fl2k[:INDEX]` feed a transmitter through
+rf/hardware.py (HackDAC or FL2K baseband where the mode's output is
+real, the sound to the sink's audio side-channel); without the vendor
+library the run exits non-zero naming it.  Any other output goes through
+the native runtime's threaded file sink (runtime.NativeFileSink), built
+at first use; without a C++ compiler it raises.  Any other switch is
+refused (--devices and --hosts among them); modes and options that the
+port does not cover yet raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -65,7 +71,8 @@ def _build_parser() -> argparse.ArgumentParser:
       help="input: 'test' (test card), 'raw:<file>' (RGB32+PCM), "
            "'ffmpeg:<path>' or a path (ffmpeg binary, else OpenCV)")
     a("-o", "--output", default="-",
-      help="output: file:<path>, a bare path, or - for stdout")
+      help="output: hackrf[:serial], soapysdr[:args], fl2k[:index], "
+           "file:<path>, a bare path, or - for stdout")
     a("-m", "--mode", default="i", help="TV mode id (see --list-modes)")
     a("--list-modes", action="store_true")
     a("--json", action="store_true")
@@ -165,6 +172,13 @@ def _build_parser() -> argparse.ArgumentParser:
     a("--mac-audio-l2-protection", action="store_true")
     a("-t", "--type", default="int16",
       choices=["uint8", "int8", "uint16", "int16", "int32", "float"])
+    a("-f", "--frequency", type=float, default=0,
+      help="RF frequency in Hz (hardware sinks)")
+    a("-g", "--gain", type=int, default=0, help="TX gain (hardware sinks)")
+    a("-A", "--amp", action="store_true", help="enable TX amp (hackrf)")
+    a("--antenna", default=None, help="antenna name (soapysdr)")
+    a("--fl2k-audio", default="none", choices=["none", "stereo", "spdif"],
+      help="FL2K audio on the G/B channels: none, stereo or S/PDIF")
     a("--frames", type=int, default=0,
       help="stop after N frames (0 = until interrupted)")
     a("--seconds", type=float, default=0,
@@ -370,6 +384,40 @@ def _build_source(args, conf, active_width):
                           repeat=args.repeat, shuffle=args.shuffle)
 
 
+def _open_sink(args, complex_out: bool):
+    """The output: a hardware sink for hackrf, soapysdr or fl2k (with an
+    optional :serial), else the native threaded file sink on file:PATH,
+    a bare path or - (stdout)."""
+    target = args.output
+    for hw in ("hackrf", "soapysdr", "fl2k"):
+        if target == hw or target.startswith(hw + ":"):
+            return _open_hw_sink(args, hw, complex_out)
+    if target.startswith("file:"):
+        target = target[5:]
+    from .runtime import NativeFileSink
+    return NativeFileSink(target, args.type, complex_out)
+
+
+def _open_hw_sink(args, hw: str, complex_out: bool):
+    """A hardware sink through its vendor library; without the library,
+    or with no device answering, the run exits naming it."""
+    from .rf import hardware
+    target = args.output
+    serial = target.split(":", 1)[1] if ":" in target else None
+    try:
+        return hardware.open_sink(
+            hw, serial, sample_rate=int(args.samplerate),
+            frequency=int(args.frequency), gain=int(args.gain),
+            amp=args.amp, antenna=args.antenna,
+            complex_out=complex_out,
+            # HackDAC/FL2K baseband mode when the output is real
+            # (src/hacktv.c:1452, :1480)
+            baseband=not complex_out,
+            fl2k_audio=args.fl2k_audio)
+    except hardware.HardwareUnavailable as e:
+        raise SystemExit(str(e))
+
+
 def _frames_per_block(args, conf, frames: int) -> int:
     """--frames-per-block, or 16 for the test card and 8 for moving
     inputs, whose frames stack on the device; 1 for moving SECAM,
@@ -444,7 +492,6 @@ def main(argv=None) -> int:
         frames = max(frames, int(np.ceil(args.seconds * fr.num / fr.den)))
     fpb = _frames_per_block(args, conf, frames)
 
-    from .runtime import NativeFileSink
     if conf.mac_mode is not None:
         from .video.mac import MacEncoder
         aw, _ = MacEncoder.active_geometry(conf, sample_rate, pixel_rate)
@@ -455,9 +502,7 @@ def main(argv=None) -> int:
         p = VideoParams.create(conf, sample_rate, pixel_rate)
         source = _build_source(args, conf, p.active_width)
         enc = _encoder(args, conf, sample_rate, pixel_rate, fpb, source)
-    target = args.output[5:] if args.output.startswith("file:") \
-        else args.output
-    sink = NativeFileSink(target, args.type, enc.complex_out)
+    sink = _open_sink(args, enc.complex_out)
     if args.verbose:
         _report(args, conf, enc, sample_rate, pixel_rate)
 
@@ -501,6 +546,12 @@ def main(argv=None) -> int:
                           f"{samples_out / dt / 1e6:.1f} MS/s "
                           f"({samples_out / dt / sample_rate:.1f}x "
                           "realtime)", end="", file=sys.stderr)
+                # the sink's audio side-channel (HackDAC interleave, FL2K
+                # stereo/S/PDIF channels; src/hacktv.c:1586)
+                if hasattr(sink, "write_audio"):
+                    pcm = enc.block_audio_pcm(b0)
+                    if pcm is not None and len(pcm):
+                        sink.write_audio(pcm)
                 frames_done += fpb
             pending = nxt
             if pending is None:
@@ -518,6 +569,12 @@ def main(argv=None) -> int:
             print(f"profiler trace written to {args.profile}",
                   file=sys.stderr)
         sink.close()
+        if args.verbose and hasattr(sink, "stats"):
+            st = sink.stats()
+            print(f"sink: {st['underruns']} underrun"
+                  f"{'s' if st['underruns'] != 1 else ''}, longest "
+                  f"{st['longest_shortfall_bytes']} bytes",
+                  file=sys.stderr)
         if hasattr(source, "close"):
             source.close()
         if args.verbose and samples_out:

@@ -1140,10 +1140,35 @@ class Encoder:
             return a.reshape(-1, 2)
         return a.reshape(-1)
 
+    def block_audio_pcm(self, block_no: int):
+        """32 kHz int16 stereo pairs consumed during this block
+        (volume-scaled, after the Syster inversion): the sink audio
+        side-channel the reference feeds from its audio process
+        (src/video.c:3306-3310), which the HackDAC and FL2K sinks
+        consume.  None for modes without audio."""
+        if not self.has_audio:
+            return None
+        a = self.audio
+        n = self.frames_per_block * self.conf.lines * self.out_params.width
+        p0 = block_no * n * a.A // a.S
+        p1 = (block_no + 1) * n * a.A // a.S
+        return a._pcm(p0, p1 - p0).astype(np.int16)
+
     def encode_frame(self, frame_no: int) -> np.ndarray:
         """Single-frame convenience API (frames_per_block must be 1)."""
         assert self.frames_per_block == 1
         return self.encode_block(frame_no)
+
+    # the JAX package's older names
+    _encode_frame_dev = encode_block_device
+    encode_frame_device = encode_block_device
+
+    def iter_frames(self, n_frames: int):
+        """Frames 0..n_frames-1 as host samples, one a block
+        (frames_per_block must be 1)."""
+        assert self.frames_per_block == 1
+        for f in range(n_frames):
+            yield self.encode_frame(f)
 
 
 class _OrientedSource:

@@ -1,8 +1,8 @@
 """Rational polyphase int16 resampler (src/fir.c:263-428): the video
-resampler of `--pixelrate`.
+resampler of `--pixelrate`, and (StreamResampler, on the host) the
+hardware sinks' audio side-channels.
 
-Port of hacktv_tpu/ops/resampler.py (without StreamResampler, which
-serves the hardware sinks' audio).  Output m (0-based, stream-absolute)
+Port of hacktv_tpu/ops/resampler.py.  Output m (0-based, stream-absolute)
 reads the A most recent inputs after i(m) = floor(m*M / L) + 1 inputs
 have been consumed, with the polyphase bank row d(m) = (m*M) mod L:
 
@@ -84,6 +84,47 @@ class Resampler:
         win = xx[np.clip(idx + self.A, 0, len(xx) - 1)]
         win[idx + self.A >= len(xx)] = 0
         acc = np.sum(win * self.T[d].astype(np.int64), axis=1)
+        return np.clip(acc >> 15, -32768, 32767).astype(np.int16)
+
+
+class StreamResampler:
+    """Stateful host-side streaming wrapper with the reference's
+    fir_int16 feed/process semantics (src/fir.c:298-352): feed chunks of
+    int16 inputs, receive every output whose window is complete, exact in
+    int64 whatever the chunking.  The sinks' audio side-channels use it
+    (32 kHz to rate/64 for HackDAC, the S/PDIF bitstream to the DAC rate;
+    src/rf_hackrf.c:456-472, src/rf_fl2k.c:192-248)."""
+
+    def __init__(self, rs: Resampler):
+        self.rs = rs
+        self._hist = np.zeros(rs.A, np.int64)   # the last A inputs fed
+        self.n_in = 0
+        self.m = 0
+
+    def process(self, x: np.ndarray) -> np.ndarray:
+        rs = self.rs
+        x = np.asarray(x, np.int64).reshape(-1)
+        n1 = self.n_in + len(x)
+        m1 = rs.n_outputs_exact(n1)
+        n_out = m1 - self.m
+        if n_out <= 0:
+            self._hist = np.concatenate([self._hist, x])[-rs.A:]
+            self.n_in = n1
+            return np.zeros(0, np.int16)
+        m = self.m + np.arange(n_out, dtype=np.int64)
+        i = (m * rs.M) // rs.L + 1
+        d = (m * rs.M) % rs.L
+        # window inputs [i - A, i) of buf = the history (inputs
+        # n_in - A .. n_in) and the new chunk
+        buf = np.concatenate([self._hist, x])
+        base = self.n_in - rs.A                  # buf[0]'s input index
+        idx = i[:, None] - rs.A + np.arange(rs.A)[None, :] - base
+        win = buf[np.clip(idx, 0, len(buf) - 1)]
+        win[idx < 0] = 0                         # the pre-stream zeros
+        acc = np.sum(win * rs.T[d].astype(np.int64), axis=1)
+        self._hist = buf[-rs.A:]
+        self.n_in = n1
+        self.m = m1
         return np.clip(acc >> 15, -32768, 32767).astype(np.int16)
 
 

@@ -12,7 +12,11 @@ and `rt_mac_prbs2`, the CA keystreams, and `rt_mac_encode_packet`, called
 from ops/mac_bits.py; `rt_mac_audio_blocks`, the sound coding blocks,
 from audio/mac_audio.py; `rt_mac_mux_replay_packed` and
 `rt_mac_materialize_packed`, the packet multiplex and the line bits, from
-video/mac.py) and the threaded file sink (`NativeFileSink`).
+video/mac.py), the threaded file sink (`NativeFileSink`), and the
+hardware sinks' plumbing (rf/hardware.py): the byte FIFO with its prefill
+and EOF (`Fifo`, the reference's src/fifo.c), the sample-format
+converters (`convert_iq`, `convert_hackrf_iq8`, `convert_hackdac_bb`,
+`convert_fl2k_u8`) and the FL2K audio dither (`Fl2kDither`).
 
 The library is compiled from the repo's `native/hacktv_rt.cpp` with g++
 (the flags of native/Makefile) into `hacktv_tpu_torch/_build/` at first
@@ -46,6 +50,8 @@ SINK_FIFO_BYTES = 64 << 20     # the file sink's queue between the threads
 # rt_type enum (native/hacktv_rt.cpp)
 TYPE_IDS = {"uint8": 0, "int8": 1, "uint16": 2, "int16": 3, "int32": 4,
             "float": 5}
+TYPE_NP = {"uint8": np.uint8, "int8": np.int8, "uint16": np.uint16,
+           "int16": np.int16, "int32": np.int32, "float": np.float32}
 
 _lock = threading.Lock()
 _lib = None
@@ -142,6 +148,27 @@ def _declare(lib) -> None:
     lib.rt_file_sink_write.argtypes = [p, p, c.c_size_t]
     lib.rt_file_sink_close.restype = c.c_long
     lib.rt_file_sink_close.argtypes = [p]
+    lib.rt_fifo_create.restype = p
+    lib.rt_fifo_create.argtypes = [c.c_size_t, c.c_size_t]
+    for name in ("rt_fifo_destroy", "rt_fifo_close_writer",
+                 "rt_fifo_abort"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [p]
+    for name in ("rt_fifo_write", "rt_fifo_read", "rt_fifo_read_nowait"):
+        getattr(lib, name).restype = c.c_long
+        getattr(lib, name).argtypes = [p, p, c.c_size_t]
+    lib.rt_fifo_level.restype = c.c_long
+    lib.rt_fifo_level.argtypes = [p]
+    lib.rt_convert_iq.restype = c.c_size_t
+    lib.rt_convert_iq.argtypes = [p, c.c_size_t, p, c.c_int, c.c_int]
+    lib.rt_convert_hackrf_iq8.restype = None
+    lib.rt_convert_hackrf_iq8.argtypes = [p, c.c_size_t, p]
+    lib.rt_convert_hackdac_bb.restype = None
+    lib.rt_convert_hackdac_bb.argtypes = [p, c.c_size_t, p, c.c_int16]
+    lib.rt_convert_fl2k_u8.restype = None
+    lib.rt_convert_fl2k_u8.argtypes = [p, c.c_size_t, p, c.c_int]
+    lib.rt_fl2k_dither_u8.restype = None
+    lib.rt_fl2k_dither_u8.argtypes = [p, c.c_size_t, c.c_size_t, p, p]
 
 
 def ptr(a: np.ndarray):
@@ -263,3 +290,111 @@ class NativeFileSink:
             self.close()
         except Exception:
             pass
+
+
+class Fifo:
+    """Bounded byte FIFO with prefill and EOF (the reference's src/fifo.c):
+    reads wait until `prefill` bytes were buffered once, writes wait while
+    it is full, and a closed, drained FIFO reads as EOF.  The native calls
+    release the interpreter lock, so a writer blocked on a full FIFO does
+    not hold up the reader's thread."""
+
+    def __init__(self, capacity: int, prefill: int = 0):
+        self._lib = load()
+        self._h = self._lib.rt_fifo_create(capacity, prefill)
+        if not self._h:
+            raise MemoryError("rt_fifo_create failed")
+
+    def write(self, data: bytes | np.ndarray) -> int:
+        """Write all of `data`, waiting for room: its length, or -1 when
+        the reader aborted."""
+        a = (np.frombuffer(data, np.uint8)
+             if isinstance(data, (bytes, bytearray))
+             else np.ascontiguousarray(data).view(np.uint8).ravel())
+        return self._lib.rt_fifo_write(self._h, ptr(a), a.nbytes)
+
+    def read(self, n: int, nowait: bool = False) -> bytes | None:
+        """Up to n bytes.  b"" is EOF for a waiting read and an underrun
+        for a nowait read; None is an abort, or EOF for a nowait read
+        (the native -1), which callers must tell apart from b""."""
+        out = np.empty(n, np.uint8)
+        fn = (self._lib.rt_fifo_read_nowait if nowait
+              else self._lib.rt_fifo_read)
+        r = fn(self._h, ptr(out), n)
+        if r < 0:
+            return None
+        return out[:r].tobytes()
+
+    def close_writer(self) -> None:
+        self._lib.rt_fifo_close_writer(self._h)
+
+    def abort(self) -> None:
+        self._lib.rt_fifo_abort(self._h)
+
+    def level(self) -> int:
+        """Bytes buffered now."""
+        return self._lib.rt_fifo_level(self._h)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.rt_fifo_destroy(self._h)
+            self._h = None
+
+
+def convert_iq(iq: np.ndarray, dtype: str, complex_out: bool) -> np.ndarray:
+    """Interleaved int16 I/Q in a file sample format (src/rf_file.c:34-277);
+    real output keeps I only."""
+    iq = np.ascontiguousarray(iq, np.int16)
+    samples = iq.size // 2
+    out = np.empty(samples * (2 if complex_out else 1), TYPE_NP[dtype])
+    load().rt_convert_iq(ptr(iq), samples, ptr(out), TYPE_IDS[dtype],
+                         1 if complex_out else 0)
+    return out
+
+
+def convert_hackrf_iq8(iq: np.ndarray) -> np.ndarray:
+    """HackRF RF mode: int16 I/Q to int8 pairs, the top 8 bits
+    (src/rf_hackrf.c:246-276)."""
+    iq = np.ascontiguousarray(iq, np.int16)
+    out = np.empty(iq.size, np.int8)
+    load().rt_convert_hackrf_iq8(ptr(iq), iq.size // 2, ptr(out))
+    return out
+
+
+def convert_hackdac_bb(iq: np.ndarray, sync_level: int = -9000
+                       ) -> np.ndarray:
+    """HackDAC baseband: the I channel as a 10-bit code over two bytes,
+    the sync flag in the top bit (src/rf_hackrf.c:278-308)."""
+    iq = np.ascontiguousarray(iq, np.int16)
+    samples = iq.size // 2
+    out = np.empty(samples * 2, np.uint8)
+    load().rt_convert_hackdac_bb(ptr(iq), samples, ptr(out), sync_level)
+    return out
+
+
+def convert_fl2k_u8(iq: np.ndarray, channel: int) -> np.ndarray:
+    """FL2K video: one channel (0 = I, 1 = Q) as unsigned 8-bit DAC
+    codes (src/rf_fl2k.c:96-133)."""
+    iq = np.ascontiguousarray(iq, np.int16)
+    samples = iq.size // 2
+    out = np.empty(samples, np.uint8)
+    load().rt_convert_fl2k_u8(ptr(iq), samples, ptr(out), channel)
+    return out
+
+
+class Fl2kDither:
+    """One channel's first-order delta-sigma dither of 16-bit PCM to the
+    FL2K's 8-bit DAC (src/rf_fl2k.c:157-183); the error carries from
+    call to call."""
+
+    def __init__(self):
+        self._lib = load()
+        self._err = np.zeros(1, np.int32)
+
+    def process(self, pcm: np.ndarray, stride: int = 1) -> np.ndarray:
+        pcm = np.ascontiguousarray(pcm, np.int16)
+        n = pcm.size // stride
+        out = np.empty(n, np.uint8)
+        self._lib.rt_fl2k_dither_u8(ptr(pcm), n, stride, ptr(out),
+                                    ptr(self._err))
+        return out

@@ -3,6 +3,7 @@ hacktv_tpu (tests/test_torch_*.py)."""
 
 from __future__ import annotations
 
+import ctypes as C
 import dataclasses
 import enum
 import fcntl
@@ -146,3 +147,77 @@ def assert_no_torch(blob: bytes) -> None:
     mods = pickled_modules(blob)
     bad = sorted(m for m in mods if m == "torch" or m.startswith("torch."))
     assert not bad, f"the blob refers to {bad}"
+
+
+class MockVendorLib:
+    """A vendor library (libhackrf, libSoapySDR, libosmo-fl2k) for either
+    package's drivers: every function returns success (0) and is recorded
+    in `called`, in order.  writeStream takes at most `chunk` samples a
+    call and keeps them in `written`.  With a `transfer` size, the TX
+    callback that hackrf_start_tx or fl2k_start_tx receives is pulled at
+    hackrf_stop_tx or fl2k_stop_tx into `pulled`: HackRF transfers of
+    `transfer` bytes until the callback ends the stream (at most
+    `max_transfers`), or `max_transfers` FL2K transfers of `transfer`
+    samples (R, G, B)."""
+
+    def __init__(self, version=b"git-abcdef (2024)", chunk=1000,
+                 transfer=0, max_transfers=64):
+        self.called = []
+        self.written = []
+        self.pulled = []
+        self._version = version
+        self._chunk = chunk
+        self._transfer = transfer
+        self._max = max_transfers
+        self._cb = None
+
+    def _pull_hackrf(self):
+        # the callback's own structure type (each package has its own)
+        t = self._cb.argtypes[0]._type_()
+        buf = (C.c_uint8 * self._transfer)()
+        t.buffer = C.cast(buf, C.POINTER(C.c_uint8))
+        t.buffer_length = t.valid_length = self._transfer
+        for _ in range(self._max):
+            if self._cb(C.pointer(t)) != 0:
+                return
+            self.pulled.append(bytes(buf))
+        raise RuntimeError("the HackRF callback did not end the stream")
+
+    def _pull_fl2k(self):
+        info = self._cb.argtypes[0]._type_()
+        n = info.len = self._transfer
+        for _ in range(self._max):
+            self._cb(C.pointer(info))
+            self.pulled.append(tuple(C.string_at(getattr(info, f), n)
+                                     for f in ("r_buf", "g_buf", "b_buf")))
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+
+        def fn(*args):
+            self.called.append(name)
+            if name == "hackrf_version_string_read":
+                args[1].value = self._version
+            if name == "hackrf_open_by_serial":
+                args[1]._obj.value = 1234
+            if name == "fl2k_open":
+                args[0]._obj.value = 1234
+            if name in ("SoapySDRDevice_makeStrArgs",
+                        "SoapySDRDevice_setupStream"):
+                return 1234
+            if name == "hackrf_compute_baseband_filter_bw":
+                return 1_750_000
+            if name == "SoapySDRDevice_writeStream":
+                n = min(args[3], self._chunk)
+                self.written.append(C.string_at(args[2][0], n * 4))
+                return n
+            if name in ("hackrf_start_tx", "fl2k_start_tx"):
+                self._cb = args[1]
+            if name == "hackrf_stop_tx" and self._transfer:
+                self._pull_hackrf()
+            if name == "fl2k_stop_tx" and self._transfer:
+                self._pull_fl2k()
+            return 0
+        setattr(self, name, fn)
+        return fn

@@ -7,7 +7,10 @@ the cuts, scrambled audio, the MAC audio modes), and on the moving
 inputs (raw: files through the fit switches, --repeat/--shuffle, ffmpeg:
 through a fake binary with --ffmt/--fopts, an .avi through OpenCV, MAC
 from a raw: file) and -v; the scramblers' and MAC's checks exit with the
-JAX command line's messages; it refuses what it does not cover."""
+JAX command line's messages; the hardware sinks (-o hackrf and -o fl2k
+with -f, -g, -A and --fl2k-audio) give a mock vendor library the JAX
+command line's calls and bytes, and -o hackrf with no library exits
+naming it and writes no file; it refuses what it does not cover."""
 
 from __future__ import annotations
 
@@ -470,15 +473,112 @@ def test_cli_verbose_version_profile(tmp_path, capsys):
     assert "hacktv_tpu_torch" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv", [["--devices", "2"], ["--hosts", "2"],
-                                  ["-f", "855250000"], ["--fl2k-audio",
-                                                        "stereo"]],
+@pytest.mark.parametrize("argv", [["--devices", "2"], ["--hosts", "2"]],
                          ids=lambda a: a[0].lstrip("-"))
 def test_cli_unported_switches_refused(tmp_path, capsys, argv):
-    """More than one card, --hosts and the hardware sinks' switches stay
-    refused by the parser (exit 2, naming the switch)."""
+    """More than one card and --hosts stay refused by the parser (exit 2,
+    naming the switch)."""
     with pytest.raises(SystemExit) as e:
         cli.main(argv + ["--frames", "1", "--device", "cpu", "-o",
                          str(tmp_path / "x.bin"), "test"])
     assert e.value.code == 2
     assert argv[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["-f", "855250000", "-g", "47", "-A",
+                                   "--antenna", "TX"],
+                                  ["--fl2k-audio", "stereo"]],
+                         ids=lambda a: a[0].lstrip("-"))
+def test_cli_hw_switches_accepted(tmp_path, argv):
+    """The hardware sinks' switches are accepted, and to a file they
+    change nothing."""
+    out = [tmp_path / "a.bin", tmp_path / "b.bin"]
+    base = ["-m", "pal", "-s", "4000000", "--frames", "1", "--device",
+            "cpu", "test"]
+    assert cli.main(argv + base + ["-o", str(out[0])]) == 0
+    assert cli.main(base + ["-o", str(out[1])]) == 0
+    assert out[0].read_bytes() == out[1].read_bytes()
+
+
+def test_cli_hackrf_without_library(tmp_path, monkeypatch):
+    """-o hackrf where libhackrf cannot be found exits with the JAX
+    command line's message and leaves no file named hackrf (it used to
+    write one)."""
+    from hacktv_tpu_torch.rf import hardware
+    monkeypatch.setattr(hardware, "_find_lib", lambda names: None)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["-o", "hackrf", "-m", "pal", "-s", "4000000", "--frames",
+                  "1", "--device", "cpu", "test"])
+    assert "libhackrf" in str(e.value.code)
+    assert not (tmp_path / "hackrf").exists()
+
+
+def test_cli_module_hackrf_refused(tmp_path):
+    """python -m hacktv_tpu_torch -o hackrf on a host with no HackRF
+    exits non-zero naming libhackrf (or, where the library is installed,
+    the device that did not answer), and writes no file."""
+    r = subprocess.run(
+        [sys.executable, "-m", "hacktv_tpu_torch", "-o", "hackrf", "-m",
+         "i", "--frames", "1", "--device", "cpu", "test"],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO})
+    assert r.returncode != 0
+    assert "libhackrf" in r.stderr or "hackrf:" in r.stderr, r.stderr
+    assert not (tmp_path / "hackrf").exists()
+    assert os.listdir(tmp_path) == []
+
+
+def _hw_clis(monkeypatch, argv, inputs=("test",), **lib_kw):
+    """The port's and the JAX package's command lines on the same
+    arguments and inputs, each with its own loop-back mock vendor library
+    in place of the installed one: (port lib, JAX lib)."""
+    from hacktv_tpu.rf import hardware as jhw
+    from hacktv_tpu_torch.rf import hardware as thw
+    libs = [tc.MockVendorLib(**lib_kw), tc.MockVendorLib(**lib_kw)]
+    monkeypatch.setattr(thw, "_find_lib", lambda names: libs[0])
+    monkeypatch.setattr(jhw, "_find_lib", lambda names: libs[1])
+    assert cli.main(argv + ["--device", "cpu", *inputs]) == 0
+    assert jcli.main(argv + [*inputs]) == 0
+    return libs
+
+
+def test_cli_hackrf_matches_jax_cli(monkeypatch, capsys):
+    """-o hackrf:SERIAL with -f, -g, -A and -v: the same vendor calls and
+    the same bytes pulled from the sink as the JAX command line, the
+    whole stream of int8 pairs, then the zero-filled end of the last
+    transfer; the same sink line at the end."""
+    tc.jax_runtime()
+    libs = _hw_clis(monkeypatch, [
+        "-m", "i", "--frames", "2", "-o", "hackrf:0000", "-f", "855250000",
+        "-g", "47", "-A", "-v"], transfer=262_144, max_transfers=64)
+    # the sink writes a U for each underrun, with no newline
+    sink_lines = [ln[ln.index("sink:"):] for ln in
+                  capsys.readouterr().err.splitlines() if "sink:" in ln]
+    # 2 frames are 2,560,000 bytes: the tenth transfer is 61,440 short
+    assert sink_lines == ["sink: 1 underrun, longest 61440 bytes"] * 2
+    assert libs[0].called == libs[1].called
+    assert "hackrf_set_amp_enable" in libs[0].called
+    got, ref = b"".join(libs[0].pulled), b"".join(libs[1].pulled)
+    assert got == ref
+    n = 2 * 640_000 * 2
+    assert len(got) == -(-n // 262_144) * 262_144
+    ref_iq = Encoder("i", 16_000_000, frames_per_block=2,
+                     device="cpu").encode_block(0)
+    assert got[:n] == (ref_iq.reshape(-1) >> 8).astype(np.int8).tobytes()
+    assert got[n:] == bytes(len(got) - n)
+
+
+def test_cli_fl2k_stereo_matches_jax_cli(tmp_path, monkeypatch):
+    """-o fl2k --fl2k-audio stereo on a mode with sound, from a raw: file
+    with its .pcm noise: the same vendor calls and the same R (video), G
+    and B (the held, dithered 32 kHz sound) as the JAX command line."""
+    tc.jax_runtime()
+    libs = _hw_clis(monkeypatch, [
+        "-m", "b", "-s", "2000000", "--frames", "3", "--frames-per-block",
+        "1", "-o", "fl2k", "--fl2k-audio", "stereo"], [raw_clip(tmp_path)],
+        transfer=100_000, max_transfers=4)
+    assert libs[0].called == libs[1].called
+    assert libs[0].pulled == libs[1].pulled
+    for ch in range(3):
+        assert len(set(b"".join(t[ch] for t in libs[0].pulled))) > 2
