@@ -125,6 +125,24 @@ Phases, one line each (any failure exits non-zero before the result):
      checkpoint: seven e2e paths at 4 frames a block checkpointed at
      block 2 on the card and resumed on the card and on the CPU, blocks
      2-3 against the continuous run (0 differing values required);
+     devices: the line-axis sharding (Encoder(devices=...)): pal-i-vsb
+     at 64 frames a block (40,000 lines) on one device, then in 2 and 4
+     shards on one card and, where there are several cards, on cuda:0-1
+     and cuda:0-3 (with one card, a line says that no run across cards
+     was made, which is not a failure): blocks 0-3 byte-identical to one
+     device, then 6 blocks timed: the median block and enqueue ms, the
+     card ms of each shard's row stage (CUDA events around it), peak
+     card memory, fir_cplx launches (N a block required) and fir_cplx at
+     the shard's shape against its plain version; and pal-lowpass,
+     secam-l-vsb, l-syster-vsb, i-pixelrate, PAL 8 MS/s from 16 MS/s
+     pixels, ntsc-bs, PAL-FM with swap-IQ, the mux's two PAL-I members
+     at -2.25 and +2.25 MHz, d2mac-fm-ec and d2mac-am-dcut at 4 frames a
+     block in 2 shards, blocks 0-3 byte-identical to one device, with
+     fir_real at pal-lowpass's shard shape against its plain version;
+     hosts: `-m i --filter --frames 32 --frames-per-block 8` in one
+     process, then as `--hosts 2 --host 0` and `--host 1` at once: the
+     joined file must hold the single process's bytes and no part may
+     remain; each process's wall seconds;
  12. hw-sink: the hardware sinks fed from the card, each pulled by
      PacedLib, a fake libhackrf/libosmo-fl2k whose thread calls the
      driver's ctypes callback at the device's clock (262,144-byte HackRF
@@ -139,7 +157,8 @@ Phases, one line each (any failure exits non-zero before the result):
      prefill, the callback's p99 lateness, bytes pulled and launches.  A
      run with no underrun after the prefill must pull the producer's
      conversion of its blocks; pal-i-vsb must have none;
- 13. the command line, 4 frames each of -m i, -m i --filter with
+ 13. the command line (three processes at a time on the card), 4
+     frames each of -m i, -m i --filter with
      teletext, WSS, VITS and VITC, -m pal-fm --filter, -m pal --s-video
      --filter, -m i --pixelrate 14750000, -m i --filter --videocrypt
      free, -m ntsc-bs, -m d2mac-fm --eurocrypt ctv and -m dmac
@@ -147,9 +166,12 @@ Phases, one line each (any failure exits non-zero before the result):
      (and --letterbox), to files through the native sink; and -o hackrf
      with no HackRF: a non-zero exit naming libhackrf, no file.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.  With --profile DIR, one block of each
-path is traced with torch.profiler and its kernel times written to DIR.
+A `[total]` line gives the run's wall seconds.  The line before the
+last is {"kernels": [...]}, each kernel with its launches on the e2e
+path, the hw-sink runs and the sharded paths (`sharded_launches`); the
+last line is {"ok": true, "device": {...}}.  With --profile DIR, one
+block of each path is traced with torch.profiler and its kernel times
+written to DIR.
 """
 
 from __future__ import annotations
@@ -210,6 +232,7 @@ CPU_PATHS = {**PATHS,
              "ntsc-fm-preemph": ("ntsc-fm", 20_250_000, True, {}),
              "pal-fm-swap": ("pal-fm", 16_000_000, False, {"swap_iq": True}),
              "i-offset": ("i", 20_000_000, False, {"offset": -2_250_000}),
+             "i-offset-up": ("i", 20_000_000, False, {"offset": 2_250_000}),
              "l-secam-exact": ("l", 16_000_000, False,
                                {"secam_exact": True}),
              "30": ("30", 100_000, False, {}),
@@ -330,6 +353,21 @@ BUSY_PATHS = ("pal-i-vsb", "i-moving-vsb")
 # the scramble phase: the scrambled e2e paths and these
 SCRAMBLE_PATHS = ("i-videocrypt-vsb", "l-syster-vsb", "i-videocrypts",
                   "pal-syster-systercnr", "l-d11")
+# the devices phase: pal-i-vsb at FPB frames a block in these numbers of
+# shards on one card (and on the cards present, when more than one),
+# blocks 0-3 against one device and DEVICE_TIMED more timed; and these
+# configurations at MOVING_FPB frames a block in 2 shards, blocks 0-3
+# against one device (the mux's two members one at a time)
+DEVICE_SHARDS = (2, 4)
+DEVICE_TIMED = 6
+SHARDED_PATHS = ("pal-lowpass", "secam-l-vsb", "l-syster-vsb",
+                 "i-pixelrate", "pal-8-from-16", "ntsc-bs", "pal-fm-swap",
+                 "i-offset", "i-offset-up", "d2mac-fm-ec", "d2mac-am-dcut")
+# the cli phase's runs, this many processes at once
+CLI_AT_ONCE = 3
+# the hosts phase: the command line in two processes at once
+HOSTS_ARGS = ["-m", "i", "--filter", "--frames", "32",
+              "--frames-per-block", "8"]
 # one-frame blocks 0-3: SECAM's carry three times, every field of the
 # field-sequential modes, the second block of each
 CPU_BLOCKS = 4
@@ -506,6 +544,17 @@ def fail(msg: str) -> None:
 def phase(tag: str, **kv) -> None:
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+LAP = {}                       # "t": the clock at the last lap
+
+
+def lap(name: str) -> None:
+    """One line with the wall seconds since the last lap: what each
+    phase costs of the run's time limit."""
+    now = time.perf_counter()
+    phase("seconds", after=name, seconds=f"{now - LAP.get('t', now):.1f}")
+    LAP["t"] = now
 
 
 def cuda_ms(fn, reps: int, train: int = 1) -> float:
@@ -1377,6 +1426,232 @@ def checkpoint_phase() -> None:
         torch.cuda.empty_cache()
 
 
+def shard_kernel_check(sf, fn, taps, n: int) -> int:
+    """A kernel at a shard's shape against its plain version, on a
+    stream laid out as the encoder's (a halo line before, half a filter
+    before the shard's lines): the count of differing outputs.  These
+    launches are the check's, not a path's: the counts are put back."""
+    before = fn.launches
+    nt = taps[0].shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn(n + nt + 2048, generator=gen, device="cuda") * 8000.0
+    xs = x[1024 - nt // 2: 1024 - nt // 2 + n + nt - 1]
+    got = fn(xs, *taps, n)
+    plain = sf.stream_fir_plain(xs, taps[0],
+                                taps[1] if len(taps) > 1 else None, n)
+    got = got if isinstance(got, tuple) else (got,)
+    plain = plain if isinstance(plain, tuple) else (plain,)
+    mism = sum(int((a != b).sum()) for a, b in zip(got, plain))
+    fn.launches = before
+    return mism
+
+
+def sharded_run(sf, enc, ref: list, name: str, timed: int,
+                first_timed: int = 0) -> dict:
+    """Blocks 0-3 of a sharded encoder against `ref` (one device's), then
+    `timed` more blocks from block `first_timed` (default: the one after
+    them), timed: median block and enqueue ms, each shard's row stage on
+    the card (CUDA events, the last block), peak card memory, launches."""
+    torch.cuda.reset_peak_memory_stats()
+    for c in (sf.fir_cplx, sf.fir_real):
+        c.launches = 0
+    nd = 0
+    for b, r in enumerate(ref):
+        got = enc.encode_block(b)
+        if got.shape != r.shape:
+            fail(f"devices {name} block {b}: shape {got.shape} != "
+                 f"{r.shape}")
+        nd += int(np.count_nonzero(got != r))
+    if nd:
+        fail(f"devices {name}: {nd} samples of blocks 0-3 differ from one "
+             "device")
+    block_s, enqueue_s = [0.0], [0.0]
+    b0 = first_timed or len(ref)
+    for b in range(b0, b0 + timed):
+        enc.shard_timing = b == b0 + timed - 1
+        torch.cuda.synchronize()
+        tb = time.perf_counter()
+        enc.encode_block_device(b)
+        enqueue_s.append(time.perf_counter() - tb)
+        torch.cuda.synchronize()
+        block_s.append(time.perf_counter() - tb)
+    if timed:
+        block_s, enqueue_s = block_s[1:], enqueue_s[1:]
+    shard_ms = [ev0.elapsed_time(ev1) for _, ev0, ev1 in enc.shard_events]
+    nblocks = len(ref) + timed
+    return dict(differing=nd, blocks=nblocks,
+                median_block_ms=statistics.median(block_s) * 1e3,
+                median_enqueue_ms=statistics.median(enqueue_s) * 1e3,
+                shard_ms=shard_ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches={c.__name__: c.launches
+                          for c in (sf.fir_cplx, sf.fir_real)})
+
+
+def card_runs(ncards: int) -> list:
+    """The device lists across cards: 2 cards, and 4 where there are."""
+    return [[f"cuda:{k}" for k in range(n)] for n in (2, 4) if n <= ncards]
+
+
+def full_width_runs(sf, runs: list, counts: dict) -> None:
+    """pal-i-vsb at FPB frames a block (40,000 lines) on one device, then
+    on each device list of `runs`: blocks 0-3 byte-identical to one
+    device, the block times, and fir_cplx at the shards' shape against
+    its plain version; its launches go into `counts`."""
+    path = "pal-i-vsb"
+    spec = PATHS[path]
+    one = build(spec, "cuda", noise_source(spec), FPB)
+    ref = [one.encode_block(b) for b in range(4)]
+    base = sharded_run(sf, one, [], "one device", DEVICE_TIMED,
+                       first_timed=len(ref))
+    phase("devices", path=path, shards=1, devices="cuda:0",
+          lines=FPB * 625, median_block_ms=f"{base['median_block_ms']:.2f}",
+          median_enqueue_ms=f"{base['median_enqueue_ms']:.2f}",
+          peak_mem_gb=f"{base['peak_mem_gb']:.2f}",
+          card=json.dumps(CARD["smi"]))
+    taps = one.vf_taps
+    n_block = FPB * 625 * one.out_params.width
+    del one
+    torch.cuda.empty_cache()
+    for devs in runs:
+        n = len(devs)
+        name = f"{path} x{n} on {','.join(sorted(set(devs)))}"
+        enc = build((*spec[:3], {**spec[3], "devices": devs}), "cuda",
+                    noise_source(spec), FPB)
+        r = sharded_run(sf, enc, ref, name, DEVICE_TIMED)
+        per_block = r["launches"]["fir_cplx"] / r["blocks"]
+        mism = shard_kernel_check(sf, sf.fir_cplx, taps, n_block // n)
+        phase("devices", path=path, shards=n, devices=",".join(devs),
+              lines_per_shard=FPB * 625 // n,
+              blocks_0_3_differing=r["differing"],
+              median_block_ms=f"{r['median_block_ms']:.2f}",
+              vs_one_device="{:.3f}".format(
+                  r["median_block_ms"] / base["median_block_ms"]),
+              median_enqueue_ms=f"{r['median_enqueue_ms']:.2f}",
+              shard_row_stage_ms=",".join(f"{t:.2f}" for t in r["shard_ms"]),
+              peak_mem_gb=f"{r['peak_mem_gb']:.2f}",
+              fir_cplx_per_block=f"{per_block:g}",
+              fir_cplx_at_shard_shape_mismatches=mism,
+              card=json.dumps(CARD["smi"]))
+        if per_block != n:
+            fail(f"devices {name}: fir_cplx launched {per_block} times a "
+                 f"block, not {n}")
+        if mism:
+            fail(f"devices {name}: fir_cplx differs from its plain version "
+                 "at the shard's shape")
+        counts["fir_cplx"][f"{path}-x{n}"] = r["launches"]["fir_cplx"]
+        del enc
+        torch.cuda.empty_cache()
+    del ref
+    torch.cuda.empty_cache()
+
+
+def devices_phase(sf) -> dict:
+    """Encoder(devices=...): pal-i-vsb at FPB frames a block (40,000
+    lines) in 2 and 4 shards on one card, and on the cards present when
+    there are several, blocks 0-3 byte-identical to one device and its
+    block times; the kernels at the shards' shapes against their plain
+    versions; SHARDED_PATHS at MOVING_FPB frames a block in 2 shards,
+    blocks 0-3 byte-identical to one device.  Returns each kernel's
+    launches on the sharded paths."""
+    counts = {"fir_cplx": {}, "fir_real": {}}
+    runs = [["cuda:0"] * n for n in DEVICE_SHARDS]
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        runs += card_runs(ncards)
+    else:
+        phase("devices-multi", cards=ncards,
+              result="skipped, not failed: only one card was present, so "
+                     "no speed-up across cards was measured")
+    full_width_runs(sf, runs, counts)
+    for path in SHARDED_PATHS:
+        mac = path in MAC_PATHS
+        spec = MAC_PATHS[path] if mac else CPU_PATHS[path]
+        if mac:
+            src = mac_noise_source(spec)
+            mk = lambda devs: build_mac(
+                (*spec[:2], {**spec[2], "devices": devs}), "cuda", src,
+                MOVING_FPB)
+        else:
+            src = noise_source(spec)
+            mk = lambda devs: build(
+                (*spec[:3], {**spec[3], "devices": devs}), "cuda", src,
+                MOVING_FPB)
+        one = mk(None)
+        ref = [one.encode_block(b) for b in range(4)]
+        del one
+        enc = mk(["cuda:0"] * 2)
+        r = sharded_run(sf, enc, ref, path, 0)
+        phase("devices", path=path, shards=2, frames_per_block=MOVING_FPB,
+              blocks_0_3_differing=r["differing"],
+              launches=json.dumps(r["launches"]).replace(" ", ""))
+        for k, v in r["launches"].items():
+            if v:
+                counts[k][f"{path}-x2"] = v
+        if path == "pal-lowpass":
+            w = enc.out_params.width
+            mism = shard_kernel_check(sf, sf.fir_real, [enc.vf_taps[0]],
+                                      MOVING_FPB * 625 * w // 2)
+            phase("devices", path=path, check="fir_real at the shard's "
+                  "shape", mismatches=mism)
+            if mism or not r["launches"]["fir_real"]:
+                fail(f"devices {path}: fir_real not launched or differs")
+        del enc
+        torch.cuda.empty_cache()
+    return counts
+
+
+def hosts_phase() -> None:
+    """--hosts 2: two processes of the command line on the card at once
+    (--host 0 and 1), each encoding its half of the blocks to a part, and
+    process 0 joining them; the joined file must hold the bytes of one
+    process, and no part may remain.  Each process's wall seconds."""
+    env = {**os.environ, "PYTHONPATH": HERE}
+    with tempfile.TemporaryDirectory() as tmp:
+        single = os.path.join(tmp, "single.bin")
+        multi = os.path.join(tmp, "multi.bin")
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "hacktv_tpu_torch",
+                            *HOSTS_ARGS, "-o", single, "test"], cwd=tmp,
+                           env=env, capture_output=True, text=True,
+                           timeout=600)
+        single_s = time.perf_counter() - t
+        if r.returncode != 0:
+            fail(f"hosts: the single process exited {r.returncode}: "
+                 f"{r.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "hacktv_tpu_torch", *HOSTS_ARGS,
+             "--hosts", "2", "--host", str(i), "-o", multi, "test"],
+            cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(2)]
+        wall, outs = [], []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+                wall.append(time.perf_counter() - t0)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for i, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"hosts: --host {i} exited {p.returncode}: "
+                     f"{out[-2000:]}")
+        left = sorted(f for f in os.listdir(tmp)
+                      if ".part" in f or f.endswith(".done"))
+        same = (os.path.exists(multi) and
+                open(single, "rb").read() == open(multi, "rb").read())
+        phase("hosts", args="".join(HOSTS_ARGS), hosts=2,
+              single_process_s=f"{single_s:.1f}",
+              host_wall_s=",".join(f"{w:.1f}" for w in wall),
+              bytes=os.path.getsize(single), identical=same,
+              parts_left=len(left))
+        if not same or left:
+            fail(f"hosts: the joined file differs or parts remain {left}")
+
+
 def fm_host_phase(enc, out) -> None:
     """The host's parts of one block of FM video on the host, each timed
     alone: the sound carrier's held feed (fm_exact_stream), one serial
@@ -1500,37 +1775,51 @@ def cli_phase() -> None:
     env = {**os.environ, "HACKTV_TPU_TELETEXT_TIME": str(TELETEXT_TIME)}
     with tempfile.TemporaryDirectory() as tmp:
         # (arguments, int16 values a frame: samples times I and Q)
-        for args, frame_values in ((["-m", "i"], 2 * 640_000),
-                                   (["-m", "i", "--filter", "--teletext",
-                                     demo, "--wss", "16:9", "--vits",
-                                     "--vitc"], 2 * 640_000),
-                                   (["-m", "pal-fm", "--filter", "-s",
-                                     "20250000"], 2 * 810_000),
-                                   (["-m", "pal", "--s-video", "--filter"],
-                                    2 * 640_000),
-                                   (["-m", "i", "--pixelrate", "14750000"],
-                                    2 * 640_000),
-                                   (["-m", "i", "--filter", "--videocrypt",
-                                     "free"], 2 * 640_000),
-                                   (["-m", "ntsc-bs"], 2 * 533_925),
-                                   (["-m", "d2mac-fm", "--eurocrypt", "ctv",
-                                     "-s", "20250000"], 2 * 810_000),
-                                   (["-m", "dmac", "--double-cut", "-s",
-                                     "20250000"], 810_000)):
-            out = os.path.join(tmp, "out.bin")
+        cases = ((["-m", "i"], 2 * 640_000),
+                 (["-m", "i", "--filter", "--teletext", demo, "--wss",
+                   "16:9", "--vits", "--vitc"], 2 * 640_000),
+                 (["-m", "pal-fm", "--filter", "-s", "20250000"],
+                  2 * 810_000),
+                 (["-m", "pal", "--s-video", "--filter"], 2 * 640_000),
+                 (["-m", "i", "--pixelrate", "14750000"], 2 * 640_000),
+                 (["-m", "i", "--filter", "--videocrypt", "free"],
+                  2 * 640_000),
+                 (["-m", "ntsc-bs"], 2 * 533_925),
+                 (["-m", "d2mac-fm", "--eurocrypt", "ctv", "-s",
+                   "20250000"], 2 * 810_000),
+                 (["-m", "dmac", "--double-cut", "-s", "20250000"],
+                  810_000))
+        runs = [(args, fv, os.path.join(tmp, f"out{k}.bin"))
+                for k, (args, fv) in enumerate(cases)]
+        # CLI_AT_ONCE processes at a time share the card: a run is
+        # mostly the interpreter's and the card's start
+        done = []
+        for i in range(0, len(runs), CLI_AT_ONCE):
             t = time.perf_counter()
-            r = subprocess.run(
+            procs = [subprocess.Popen(
                 [sys.executable, "-m", "hacktv_tpu_torch", *args,
                  "--frames", "4", "-o", out, "test"],
-                capture_output=True, text=True, timeout=600, env=env)
-            if r.returncode != 0:
-                fail(f"cli {args} exited {r.returncode}: "
-                     f"{r.stderr[-2000:]}")
+                stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True, env=env) for args, _, out in
+                runs[i:i + CLI_AT_ONCE]]
+            try:
+                for p in procs:
+                    err = p.communicate(timeout=600)[1]
+                    done.append((p.returncode, err,
+                                 time.perf_counter() - t))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+        for (args, frame_values, out), (rc, err, secs) in zip(runs, done):
+            if rc != 0:
+                fail(f"cli {args} exited {rc}: {err[-2000:]}")
             size = os.path.getsize(out)
             data = np.fromfile(out, np.int16)
             phase("cli", args="".join(a for a in args if a != demo),
-                  bytes=size,
-                  seconds=f"{time.perf_counter() - t:.1f}")
+                  bytes=size, seconds=f"{secs:.1f}",
+                  at_once=CLI_AT_ONCE)
             if size != 4 * frame_values * 2:
                 fail(f"cli {args} wrote {size} bytes, expected "
                      f"{4 * frame_values * 2}")
@@ -1943,7 +2232,7 @@ def main() -> int:
     from hacktv_tpu_torch.video.params import VideoParams
 
     kind = card()
-    t = time.perf_counter()
+    t_start = t = LAP["t"] = time.perf_counter()
     # g++ on the native runtime beside nvcc on each kernel source
     rt = {}
 
@@ -1970,13 +2259,21 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     sass_mix(cuda_build.lib_path("stream_fir"))
     recs = kernel_phase(sf, VideoParams, get_mode)
+    lap("build and kernels")
     nicam_phase(Encoder)
+    lap("nicam")
     secam_phase(Encoder)
+    lap("secam")
     resample_phase()
+    lap("resample")
     vbi_phase()
+    lap("vbi")
     scramble_phase()
+    lap("scramble")
     dance_phase()
+    lap("dance")
     mac_phase()
+    lap("mac")
     launches = {}
     with tempfile.TemporaryDirectory() as motion_dir:
         t = time.perf_counter()
@@ -1986,6 +2283,7 @@ def main() -> int:
             seconds=f"{time.perf_counter() - t:.1f}")
         for path in (*PATHS, *MOVING_PATHS, *MAC_PATHS):
             launches[path] = e2e_phase(sf, path, args.profile)
+        lap("e2e")
         for path, rec in recs:
             rec["launches"] = launches[path][
                 "fir_cplx" if rec["name"].endswith("cplx") else "fir_real"]
@@ -1996,12 +2294,29 @@ def main() -> int:
         for path, rec in recs:
             rec["hw_sink_launches"] = {
                 run: n for run, (p, n) in sink_counts.items() if p == path}
+        lap("hw-sink")
         cpu_compare_phase()
+        lap("card-vs-cpu")
         mac_compare_phase()
+        lap("mac card-vs-cpu")
         moving_phase()
+        lap("moving")
         checkpoint_phase()
+        lap("checkpoint")
+        sharded = devices_phase(sf)
+        for path, rec in recs:
+            rec["sharded_launches"] = sharded[
+                "fir_cplx" if rec["name"].endswith("cplx") else "fir_real"]
+            if not rec["sharded_launches"]:
+                fail(f"{rec['name']} was not launched on a sharded path")
+        lap("devices")
+        hosts_phase()
+        lap("hosts")
         cli_phase()
+        lap("cli")
         moving_cli_phase()
+        lap("moving cli")
+    phase("total", seconds=f"{time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [rec for _, rec in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

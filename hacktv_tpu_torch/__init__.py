@@ -16,7 +16,8 @@ from .rational import Rational  # noqa: F401
 def create_encoder(mode, sample_rate, **kwargs):
     """Factory returning the right encoder class for a mode: `MacEncoder`
     for D/D2-MAC (packet-multiplex raster), `Encoder` otherwise.  Both
-    take `device` (the CUDA card by default, or "cpu")."""
+    take `device` (the CUDA card by default, or "cpu"), and `devices`, a
+    list of devices to shard each block's lines over (shard.py)."""
     conf = get_mode(mode) if isinstance(mode, str) else mode
     if conf.mac_mode is not None:
         from .video.mac import MacEncoder

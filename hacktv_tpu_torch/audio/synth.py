@@ -589,7 +589,7 @@ class NicamStatics:
     # part below 2048 (split_pulse); None where pulse itself is
     pulse_hi: torch.Tensor | None = None
     pulse_lo: torch.Tensor | None = None
-    # nicam_add's index grids on the device, built at first use
+    # nicam_add's index grids, per device, built at first use
     _cache: dict = field(default_factory=dict, init=False, repr=False,
                          compare=False)
 
@@ -693,6 +693,8 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
               offr: np.ndarray,        # i32 [P] window column per class
               cc_off: torch.Tensor,    # i32 [B] carrier LUT offset per line
               k0_mod: int,             # first line's class offset
+              line0: int = 0,          # the first line's index in its block
+              block_lines: int | None = None,   # the block's lines
               ):
     """Add the NICAM DQPSK burst to the (I, Q) block [B, W].
 
@@ -704,7 +706,12 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     uploaded per block) and go through one batched product with the
     pulse matrices; the sign buffer is zero-prepadded by one period so
     pre-stream symbols read 0.  Window starts are clamped into range, as
-    the reference's dynamic_slice clamps them."""
+    the reference's dynamic_slice clamps them.
+
+    With `line0`, out_i and out_q are the lines [line0, line0 + B) of a
+    block of `block_lines` lines (one shard of it): the window starts are
+    the block's, clamped as for the whole block, and each class of the
+    shard reads its windows from the block line it starts at."""
     B, W = out_i.shape
     P, S = st.period, st.nslot
     spp = st.syms_per_period
@@ -712,15 +719,26 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     G = -(-B // P)
     dev = out_i.device
 
-    grid = st._cache.get(("grid", G, L))
+    key = ("grid", G, L, str(dev))
+    grid = st._cache.get(key)
     if grid is None:
         g = np.arange(G, dtype=np.int64)[:, None] * spp + np.arange(S)
-        grid = st._cache[("grid", G, L)] = torch.as_tensor(
-            np.stack([g, g + L]), device=dev)
+        grid = st._cache[key] = torch.as_tensor(np.stack([g, g + L]),
+                                                device=dev)
     rows, cols = L // spp - 1, spp + S
-    start = (np.clip(offq, 0, rows - G).astype(np.int64) * spp
+    G_blk = G if block_lines is None else -(-block_lines // P)
+    start = (np.clip(offq, 0, rows - G_blk).astype(np.int64) * spp
              + np.clip(offr, 0, cols - S))
+    if line0:
+        # the shard's class c' is the block's class (c' + line0) mod P,
+        # its window g' the block's window g' + (c' + line0) // P
+        c = np.arange(P, dtype=np.int64) + line0
+        start = start[c % P] + (c // P) * spp
+        k0_mod = (k0_mod + line0) % P
     idx = torch.as_tensor(start, device=dev)[:, None, None, None] + grid
+    if line0:
+        # the windows of lines past the block read nothing it keeps
+        idx = idx.clamp_(max=2 * L - 1)
     win = torch.stack([signs_i, signs_q]).reshape(-1)[idx]   # [P, 2, G, S]
     # batched over the line class c: [P, 2G, S] x [P, S, W] -> [P, 2G, W];
     # line b = g*P + c

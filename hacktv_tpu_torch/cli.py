@@ -31,7 +31,12 @@ services --teletext PATH, --wss MODE, --vits, --vitc, --cc608, --acp and
 l1-protection,l2-protection}, -t TYPE, -o OUTPUT, the hardware sinks'
 -f/--frequency HZ, -g/--gain DB, -A/--amp, --antenna NAME and
 --fl2k-audio {none,stereo,spdif}, --frames N, --seconds S,
---frames-per-block N and --device {cuda,cpu}.  The MAC modes run
+--frames-per-block N, --device {cuda,cpu}, --devices N (each block's
+lines sharded over the first N cards, or N CPU shards with --device cpu;
+the same bytes as one device) and --hosts N with --host I (or
+$HACKTV_HOST_ID): process I of N encodes its contiguous range of the
+--frames/--seconds stream's blocks into OUTPUT.partI, and process 0
+joins the parts into OUTPUT once every part is done.  The MAC modes run
 video/mac.py's MacEncoder.  The run stops at --frames/--seconds, or when
 the inputs end.
 HACKTV_TPU_TELETEXT_TIME=<unix seconds> fixes the teletext clock, as for
@@ -42,8 +47,7 @@ real, the sound to the sink's audio side-channel); without the vendor
 library the run exits non-zero naming it.  Any other output goes through
 the native runtime's threaded file sink (runtime.NativeFileSink), built
 at first use; without a C++ compiler it raises.  Any other switch is
-refused (--devices and --hosts among them); modes and options that the
-port does not cover yet raise NotImplementedError.
+refused.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import argparse
 import json
 import math
 import os
+import shutil
 import sys
 import time
 from dataclasses import replace
@@ -189,6 +194,18 @@ def _build_parser() -> argparse.ArgumentParser:
            "sequential or MAC; at most --frames)")
     a("--device", default="cuda", choices=["cuda", "cpu"],
       help="where the encoder runs (default: the CUDA card)")
+    a("--devices", type=int, default=0, metavar="N",
+      help="shard each block's line axis over the first N cards (N CPU "
+           "shards with --device cpu; 0 = single device); output is "
+           "bit-identical to single-device")
+    a("--hosts", type=int, default=0, metavar="N",
+      help="multi-host streaming: split the --frames stream into N "
+           "contiguous block ranges, one per process; each process "
+           "writes <out>.partI and host 0 concatenates the ordered parts "
+           "when all are complete")
+    a("--host", type=int, default=0, metavar="I",
+      help="this process's 0-based index for --hosts (defaults to "
+           "$HACKTV_HOST_ID or 0)")
     return p
 
 
@@ -492,16 +509,58 @@ def main(argv=None) -> int:
         frames = max(frames, int(np.ceil(args.seconds * fr.num / fr.den)))
     fpb = _frames_per_block(args, conf, frames)
 
+    devices = None
+    if args.devices:
+        if args.device == "cpu":
+            devices = ["cpu"] * args.devices
+        else:
+            import torch
+            avail = torch.cuda.device_count()
+            if args.devices > avail:
+                raise SystemExit(f"--devices {args.devices}: only "
+                                 f"{avail} cuda devices available")
+            devices = [f"cuda:{k}" for k in range(args.devices)]
+
     if conf.mac_mode is not None:
         from .video.mac import MacEncoder
         aw, _ = MacEncoder.active_geometry(conf, sample_rate, pixel_rate)
         source = _build_source(args, conf, aw)
-        enc = _mac_encoder(args, conf, sample_rate, pixel_rate, fpb, source)
+        enc = _mac_encoder(args, conf, sample_rate, pixel_rate, fpb, source,
+                           devices)
     else:
         from .video.params import VideoParams
         p = VideoParams.create(conf, sample_rate, pixel_rate)
         source = _build_source(args, conf, p.active_width)
-        enc = _encoder(args, conf, sample_rate, pixel_rate, fpb, source)
+        enc = _encoder(args, conf, sample_rate, pixel_rate, fpb, source,
+                       devices)
+
+    # multi-host streaming: this process encodes a contiguous block range
+    # into <out>.part<I>; host 0 joins the ordered parts into <out> once
+    # every part is complete
+    host_split = None
+    if args.hosts and args.hosts > 1:
+        hid = args.host or int(os.environ.get("HACKTV_HOST_ID", "0"))
+        if not frames:
+            raise SystemExit("--hosts requires a finite stream "
+                             "(--frames or --seconds)")
+        if not (0 <= hid < args.hosts):
+            raise SystemExit(f"--host {hid} out of range for "
+                             f"--hosts {args.hosts}")
+        out = args.output
+        if out == "-" or any(out == h or out.startswith(h + ":")
+                             for h in ("hackrf", "soapysdr", "fl2k")):
+            raise SystemExit("--hosts requires a file output")
+        if conf.mac_mode is not None:
+            raise SystemExit("--hosts: the MAC packet multiplex is a "
+                             "sequential stream; shard MAC blocks "
+                             "with --devices instead")
+        base_out = out[5:] if out.startswith("file:") else out
+        total_blocks = -(-frames // fpb)
+        bounds = [total_blocks * j // args.hosts
+                  for j in range(args.hosts + 1)]
+        host_split = (args.hosts, hid, base_out, bounds)
+        args.output = f"{base_out}.part{hid}"
+
     sink = _open_sink(args, enc.complex_out)
     if args.verbose:
         _report(args, conf, enc, sample_rate, pixel_rate)
@@ -523,10 +582,16 @@ def main(argv=None) -> int:
         # block b is copied back and written; the inputs' end stops the
         # dispatch
         dispatched = 0
+        blk_hi = None
+        if host_split is not None:
+            _, hid, _, bounds = host_split
+            block, blk_hi = bounds[hid], bounds[hid + 1]
+            dispatched = frames_done = block * fpb
         pending = None
         while True:
             nxt = None
             if not (frames and dispatched >= frames) \
+                    and not (blk_hi is not None and block >= blk_hi) \
                     and not source.eof(dispatched):
                 nxt = (block, enc.encode_block_device(block))
                 block += 1
@@ -577,6 +642,8 @@ def main(argv=None) -> int:
                   file=sys.stderr)
         if hasattr(source, "close"):
             source.close()
+        if host_split is not None:
+            _join_parts(args.output, host_split)
         if args.verbose and samples_out:
             dt = max(time.monotonic() - t0, 1e-9)
             print(f"\n{samples_out} samples in {dt:.2f} s = "
@@ -586,7 +653,32 @@ def main(argv=None) -> int:
     return 0
 
 
-def _mac_encoder(args, conf, sample_rate, pixel_rate, fpb, source):
+def _join_parts(part: str, host_split) -> None:
+    """Mark this process's part done; process 0 waits for every part
+    (600 s at most) and concatenates them, in host order, into the
+    output, then removes the parts."""
+    n_hosts, hid, base_out, _ = host_split
+    open(part + ".done", "w").close()
+    if hid:
+        return
+    parts = [f"{base_out}.part{j}" for j in range(n_hosts)]
+    deadline = time.monotonic() + 600.0
+    for pth in parts:
+        while not os.path.exists(pth + ".done"):
+            if time.monotonic() > deadline:
+                raise SystemExit(f"--hosts: timed out waiting for {pth}")
+            time.sleep(0.05)
+    with open(base_out, "wb") as f:
+        for pth in parts:
+            with open(pth, "rb") as g:
+                shutil.copyfileobj(g, f)
+    for pth in parts:
+        os.remove(pth)
+        os.remove(pth + ".done")
+
+
+def _mac_encoder(args, conf, sample_rate, pixel_rate, fpb, source,
+                 devices=None):
     """The D/D2-MAC encoder the switches ask for (hacktv_tpu's MAC
     dispatch; its teletext keeps the wall clock, as there)."""
     from .video.mac import MacEncoder
@@ -600,10 +692,12 @@ def _mac_encoder(args, conf, sample_rate, pixel_rate, fpb, source):
     return MacEncoder(conf, sample_rate, pixel_rate, source=source,
                       frames_per_block=fpb, scramble_video=scr,
                       scramble_audio=args.scramble_audio, eurocrypt=ec,
-                      teletext=args.teletext, device=args.device)
+                      teletext=args.teletext, device=args.device,
+                      devices=devices)
 
 
-def _encoder(args, conf, sample_rate, pixel_rate, fpb, source):
+def _encoder(args, conf, sample_rate, pixel_rate, fpb, source,
+             devices=None):
     """The raster encoder with the services the switches ask for."""
     from .encoder import Encoder
     tt_clock = None
@@ -626,7 +720,7 @@ def _encoder(args, conf, sample_rate, pixel_rate, fpb, source):
                    raw_bb_blanking=args.raw_bb_blanking,
                    raw_bb_white=args.raw_bb_white,
                    secam_exact=True if args.secam_exact else None,
-                   device=args.device)
+                   device=args.device, devices=devices)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,14 @@ encoded in order.  `checkpoint` writes those carries out (numpy only) and
 
 Metadata, line tables, taps and the audio window bookkeeping stay host
 numpy.  Options that are not ported yet raise NotImplementedError.
+
+With `devices` (a list of devices, repeats allowed) the step is split in
+two (shard.py): the block stage (the moving source's conversion, the FM
+segment assembly, NICAM's bit pipeline: the block's [nlines] vectors)
+runs once per distinct device, and the row stage (everything from the
+raster to the int16 pack) once per shard, on the shard's lines and the
+halo rows its stages read, on the shard's device.  The output is the
+single device's, byte for byte.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ import numpy as np
 import torch
 
 from . import runtime
+from . import shard
 from .audio import nicam as nicam_mod
 from .audio import nicam_dev
 from .audio import synth as audio_synth
@@ -70,7 +79,7 @@ from .config.standards import (ColourMode, Modulation, OutputType, VidConfig,
 from .ops import resampler
 from .ops.stream_fir import stream_fir
 from .rf import ops as rf_ops
-from .services import arrays_to_device
+from .services import arrays_to_device, window_arrays
 from .services.acp import ACP
 from .services.cc608 import CC608
 from .services.sis import SiS
@@ -127,7 +136,9 @@ class Encoder:
             if value:
                 raise NotImplementedError(f"{name} is not ported yet")
         if devices is not None:
-            raise NotImplementedError("multiple devices are not ported yet")
+            # the first shard's device holds the host state's tensors
+            devices = shard.resolve_devices(devices)
+            device = devices[0]
         self.device = resolve_device(device)
         # cos/sin of the FM phase at every sample, not through the K=4
         # rotation chain (hacktv_tpu's switch of the same name)
@@ -147,6 +158,12 @@ class Encoder:
         self.params = VideoParams.create(conf, sample_rate, pixel_rate)
         self.frames_per_block = frames_per_block
         p = self.params
+        # line-axis sharding over `devices` (shard.py); one device is the
+        # unsharded block
+        self._plan = None
+        if devices is not None and len(devices) > 1:
+            self._plan = shard.ShardPlan.create(
+                devices, frames_per_block * conf.lines)
 
         # Rational pixel -> sample video resampler (src/fir.c:392-428,
         # src/video.c:3627-3651): the raster runs at pixel_rate, and the
@@ -161,6 +178,15 @@ class Encoder:
             self.resampler = resampler.make_block_statics(
                 rs, p.width, self.out_params.width,
                 frames_per_block * conf.lines, halo_lines=1)
+            if self._plan is not None:
+                # a shard's resample: the last shard's ends where the
+                # block's does; an inner shard's reads a line further, so
+                # that the lines it keeps never meet the zeros past its
+                # window
+                ns = self._plan.lines_per_shard
+                self._rs_shard = tuple(resampler.make_block_statics(
+                    rs, p.width, self.out_params.width, ns, halo_lines=h)
+                    for h in (1, 2))
             if conf.colour_mode == ColourMode.SECAM:
                 # hacktv_tpu lays the SECAM chroma out at the output width
                 # over a raster at the pixel width, and fails in encoding
@@ -387,6 +413,23 @@ class Encoder:
         self._nf = frames_per_block + 2
         self._frame_cache: dict = {}
         self._yuv_lut = None
+
+        # the block's synthesised rows: the halo line before it, its
+        # lines, and halo_after lines past it
+        self._rows = frames_per_block * conf.lines + 1 + self.halo_after
+        self._windows = None
+        self._replicas: dict = {}
+        self._moved: dict = {}
+        # with shard_timing on (and CUDA devices), each row stage is
+        # bracketed by CUDA events: shard_events [(shard, start, end)]
+        self.shard_timing = False
+        self.shard_events: list = []
+        if self._plan is not None:
+            # rows a shard computes exactly past its lines: the halo line
+            # after them (the stream FIR), and the resampler's lines
+            self._windows = self._plan.windows(
+                self._rows, 2 + (2 if self.resampler is not None else 0),
+                self.halo_after)
 
     def _init_audio(self, a2stereo: bool, systeraudio: bool):
         """Audio subcarriers (FM mono, the A2 second carrier and pilot,
@@ -619,69 +662,113 @@ class Encoder:
     # ------------------------------------------------------------------
     def _step(self, yuv, m: dict, first: float, audio: dict):
         """Synthesis + output filter + audio + RF tail + int16
-        quantisation for one block of frames (plus halo lines).  Returns
+        quantisation for one block of frames (plus halo lines): the block
+        stage, then the row stage over the whole block.  Returns
         (samples, carries): the next block's device scalars by name
         ("fm_xa", "nicam_dsym", "secam_z", "fm_r")."""
-        p = self.params
-        W = p.width
-        nlines = self.frames_per_block * p.lines
-        n = nlines * W
-        carry = {}
+        blk = self._block_stage(yuv, audio)
+        win = shard.whole_window(self.frames_per_block * self.params.lines,
+                                 self._rows, self.device)
+        out, carry = self._row_stage(blk, m, first, audio, win,
+                                     self._hand_in(audio))
+        return out, {**blk.carry, **carry}
 
-        stacked_h = 0
+    def _hand_in(self, audio: dict) -> dict:
+        """The block's serial carries into its first row stage: the SECAM
+        IIR's z and the FM-video phase sum (device scalars)."""
+        hand = {}
+        if self.secam_device:
+            hand["secam_z"] = audio["secam"]["z0"]
+        if self.fm_video_statics is not None:
+            hand["fm_r"] = audio["fm_r0"]
+        return hand
+
+    def _block_stage(self, yuv, audio: dict) -> "_BlockStage":
+        """The block's replicated part on this encoder's device
+        (_BlockStage): the moving source's conversion now, the rest where
+        the row stage first reads it."""
         if self._dev_convert:
             yuv = raster.yuv_convert_device(*yuv)
             if self._multi_frame:
                 yuv = raster.stack_planes(*yuv, self.statics.black_y)
-                stacked_h = self.source.height + 1
+        return _BlockStage(self, yuv, audio)
+
+    def _row_stage(self, blk: "_BlockStage", m: dict, first: float,
+                   audio: dict,
+                   win: shard.Window, hand: dict):
+        """The row chain over one window of the block (shard.Window): its
+        synthesised rows [win.r0, win.r1), out to the samples of its lines
+        [win.a, win.b).  `hand` holds the serial carries into the window
+        (`_hand_in`); returns (samples, the carries out of it)."""
+        p = self.params
+        W = p.width
+        nl = win.nlines
+        n = nl * W
+        whole = win.whole
+        r0, r1, a = win.r0, win.r1, win.a
+        rows = (lambda t: t) if whole else (lambda t: t[r0:r1])
+        lines = (lambda t: t) if whole else (lambda t: t[a:a + nl])
+        carry = {}
+        yuv = blk.yuv
+        mw = m if whole else {k: v[r0:r1] for k, v in m.items()}
 
         cblock = None
         if self.raw_bb is not None:
-            block = audio["rawbb"]
+            block = rows(audio["rawbb"])
         else:
             # S-Video: luma and chroma on separate channels
             # (src/video.c:3032, 3219)
             block = raster.synth_block(
-                self.dstatics, yuv, m["base"], m["nxt"], m["burst"],
-                m["vswitch"], m["vy"], m["al"], m["ar"], m["cos0"],
-                m["sin0"], m["lut_row"], m["prv"] if self._use_prv else None,
-                m["fsc"], m["fscf"], split_chroma=self.conf.s_video,
-                stacked_h=stacked_h)
+                self.dstatics, yuv, mw["base"], mw["nxt"], mw["burst"],
+                mw["vswitch"], mw["vy"], mw["al"], mw["ar"], mw["cos0"],
+                mw["sin0"], mw["lut_row"],
+                mw["prv"] if self._use_prv else None, mw["fsc"],
+                mw["fscf"], split_chroma=self.conf.s_video,
+                stacked_h=(self.source.height + 1 if self._multi_frame
+                           else 0))
             if self.conf.s_video:
                 block, cblock = block
         if self.secam is not None:
             sa = audio["secam"]
+            sm = sa["meta"] if whole else secam_mod.window_meta(
+                sa["meta"], sa["host"], r0, r1, win.b)
             if self.secam_device:
                 add, carry["secam_z"] = secam_mod.device_chroma_carrier(
-                    self.secam, sa["meta"], yuv[1], yuv[2], sa["z0"])
+                    self.secam, sm, yuv[1], yuv[2], hand["secam_z"])
             else:
-                add = sa["add"].to(torch.float32)
+                add = rows(sa["add"]).to(torch.float32)
             if cblock is not None:
                 # no luma band-reject; the carrier rides the C channel
                 # (src/video.c:3206, 3219)
                 cblock = cblock + add
             else:
-                block = secam_mod.render(self.secam, block, add, sa["meta"])
+                block = secam_mod.render(self.secam, block, add, sm)
         if self.services:
             # the line's colour carrier for VITS's chroma part: the exact
             # LUT rows, the angle addition, or none (no colour carrier)
-            lut = (raster.carrier_lut(self.dstatics, m["cos0"], m["sin0"],
-                                      m["lut_row"])
+            lut = (raster.carrier_lut(self.dstatics, mw["cos0"], mw["sin0"],
+                                      mw["lut_row"])
                    if self._services_lut else None)
             for svc, arr in zip(self.services, audio["services"]):
+                if not whole:
+                    arr = window_arrays(svc, arr, r0, r1)
                 block = svc.apply(block, arr, lut)
-        block[0] *= first
-        if cblock is not None:
-            cblock[0] *= first
+        if r0 == 0:
+            # the stream starts from zero filter history
+            block[0] *= first
+            if cblock is not None:
+                cblock[0] *= first
         x = block.reshape(-1)
 
         if self.resampler is not None:
             # pixel -> sample rate resample of the stream, halo lines
             # included; from here on the stream is at the output width
-            x = resampler.device_resample_block(self.resampler, x)
+            rs = (self.resampler if whole
+                  else self._rs_shard[0 if win.last else 1])
+            x = resampler.device_resample_block(rs, x)
             p = self.out_params
             W = p.width
-            n = nlines * W
+            n = nl * W
 
         yq = None
         if self.vf_taps is not None:
@@ -691,10 +778,10 @@ class Encoder:
             y = self._stream_fir(x, taps_r, taps_i, W, n)
             if taps_i is not None:
                 y, yq = y
-                yq = yq.view(nlines, W)
-            y = y.view(nlines, W)
+                yq = yq.view(nl, W)
+            y = y.view(nl, W)
         else:
-            y = x[W: W + n].view(nlines, W)
+            y = x[W: W + n].view(nl, W)
         if cblock is not None:
             # the S-Video C channel, through the low-pass when there is
             # one (the reference's video filter runs two channels,
@@ -704,75 +791,65 @@ class Encoder:
                 yq = self._stream_fir(xc, self.vf_taps[0], None, W, n)
             else:
                 yq = xc[W: W + n]
-            yq = yq.view(nlines, W)
+            yq = yq.view(nl, W)
 
         if not self.has_audio and not self.complex_out:
             if self.passthru is not None:
-                y = y + audio["passthru"][..., 0]
+                y = y + lines(audio["passthru"])[..., 0]
             return torch.clamp(torch.round(y), -32768, 32767).to(
                 torch.int16), carry
 
         out_i = y
         out_q = yq if yq is not None else torch.zeros_like(out_i)
         if self.fm_statics is not None:
-            d = audio["fm_mono"]
-            if self.fm_dev_held:
-                held = audio_synth.held_device(self.audio.fm_mono, d["pcm"],
-                                               _LIM_HIST)
-                fmargs, carry["fm_xa"] = audio_synth.fm_prepare(
-                    self.fm_win, self.fm_statics, nlines, held, d["xa"],
-                    d["lens_off"], d["offq"], d["offr"], d["col0"],
-                    d["ctab"], d["stab"], adv=d["adv"])
-            else:
-                fmargs = self._fm_args(d, self.fm_win, self.fm_statics)
-            out_i, out_q = audio_synth.fm_add(self.fm_statics, out_i, out_q,
-                                              *fmargs, a2=self._a2)
+            out_i, out_q = audio_synth.fm_add(
+                self.fm_statics, out_i, out_q,
+                *_fm_window(blk.fm(), a, nl, whole), a2=self._a2)
         if self.fm_exact is not None:
             # the host-exact sound carrier of the FM-video modes, int16
             # (I, Q) per sample
-            fx = audio["fm_exact"]
+            fx = lines(audio["fm_exact"])
             out_i = out_i + fx[..., 0]
             out_q = out_q + fx[..., 1]
         if self.fm_right_statics is not None:
-            pp = audio["a2_pilot"]
+            pp = {k: lines(v) for k, v in audio["a2_pilot"].items()}
             phi_extra = audio_synth.a2_pilot_phase(
                 self.a2_statics, pp["c1"], pp["s1"], pp["c2"], pp["s2"],
                 pp["base_phase"])
             out_i, out_q = audio_synth.fm_add(
                 self.fm_right_statics, out_i, out_q,
-                *self._fm_args(audio["fm_right"], self.fm_right_win,
-                               self.fm_right_statics), phi_extra,
+                *_fm_window(blk.fm_right(), a, nl, whole), phi_extra,
                 a2=True)
         if self.am_statics is not None:
-            am = audio["am_mono"]
+            am = {k: lines(v) for k, v in audio["am_mono"].items()}
             out_i, out_q = audio_synth.am_add(
                 self.am_statics, out_i, out_q, am["seg_val"], am["seg_col"],
                 am["c0"], am["s0"])
+        nlines = self.frames_per_block * p.lines
         if self.nicam_statics is not None:
             nc = audio["nicam"]
-            signs_i, signs_q, carry["nicam_dsym"] = nicam_dev.signs_device(
-                self.nicam_dev_statics, nc["pcm"], nc["dsym_in"],
-                nc["famod16"], nc["base_off"], nc["nkeep"])
+            signs_i, signs_q = blk.nicam()
             out_i, out_q = audio_synth.nicam_add(
                 self.nicam_statics, out_i, out_q, signs_i, signs_q,
-                nc["offq"], nc["offr"], nc["cc_off"], audio["nicam_k0mod"])
+                nc["offq"], nc["offr"], lines(nc["cc_off"]),
+                audio["nicam_k0mod"], line0=a, block_lines=nlines)
         if self.dance_statics is not None:
             dc = audio["dance"]
             out_i, out_q = audio_synth.nicam_add(
                 self.dance_statics, out_i, out_q, dc["signs_i"],
-                dc["signs_q"], dc["offq"], dc["offr"], dc["cc_off"],
-                audio["dance_k0mod"])
+                dc["signs_q"], dc["offq"], dc["offr"], lines(dc["cc_off"]),
+                audio["dance_k0mod"], line0=a, block_lines=nlines)
 
         if self.fm_video_statics is not None:
             tri = None
             if self._fm_ed_frame is not None:
-                tri = self._fm_ed_dev.repeat(self.frames_per_block, 1)
+                tri = lines(self._fm_ed_dev.repeat(self.frames_per_block, 1))
             out_i, out_q, carry["fm_r"] = rf_ops.fm_video_modulate(
-                self.fm_video_statics, out_i, audio["fm_r0"], tri)
+                self.fm_video_statics, out_i, hand["fm_r"], tri)
         if self.conf.swap_iq:
             out_i, out_q = out_q, out_i
         if self.offset_statics is not None:
-            o = audio["offset"]
+            o = {k: lines(v) for k, v in audio["offset"].items()}
             out_i, out_q = rf_ops.offset_rotate(
                 self.offset_statics, out_i, out_q, o["c0"], o["s0"],
                 o["nz"], o["k"])
@@ -786,10 +863,47 @@ class Encoder:
         if self.passthru is not None:
             # the reference adds the passthru stream with a plain int16
             # `+=`, which wraps (src/video.c:3517-3541)
-            pt = audio["passthru"].to(torch.int32)
+            pt = lines(audio["passthru"]).to(torch.int32)
             ii = wrap(ii + pt[..., 0])
             qq = wrap(qq + pt[..., 1])
         return torch.stack([ii, qq], dim=-1).to(torch.int16), carry
+
+    # names of the encoder's device statics, replicated on each further
+    # device of a sharded encoder
+    _DEVICE_STATICS = ("dstatics", "secam", "fm_statics", "fm_win",
+                       "fm_right_statics", "fm_right_win", "a2_statics",
+                       "am_statics", "nicam_statics", "nicam_dev_statics",
+                       "dance_statics", "offset_statics", "fm_video_statics",
+                       "_fm_ed_dev")
+
+    def _step_sharded(self, yuv, m: dict, first: float, audio: dict):
+        """The block over the shard plan: the block stage once per
+        distinct device, then each shard's row stage on its device, the
+        serial carries handed from shard to shard without a wait.
+        Returns (shard.ShardedBlock, the carries of the last shard, on
+        the encoder's first device)."""
+        stages = {}
+        for dev in self._plan.distinct():
+            rep = shard.replica(self, dev, self._DEVICE_STATICS,
+                                services=True)
+            audio_d = shard.to_shard(audio, dev)
+            stages[shard.device_key(dev)] = (
+                rep, rep._block_stage(shard.on(self, dev, "yuv", yuv),
+                                      audio_d),
+                shard.on(self, dev, "meta", m), audio_d)
+        hand = self._hand_in(audio)
+        outs = []
+        self.shard_events = []
+        for win in self._windows:
+            rep, blk, m_d, audio_d = stages[shard.device_key(win.device)]
+            hand = shard.to_shard(hand, win.device)
+            out, hand = shard.timed(self, win, lambda: rep._row_stage(
+                blk, m_d, first, audio_d, win, hand))
+            outs.append(out)
+        # the carries go back to the first device, as an unsharded
+        # encoder keeps them, for the host side's catch-up and checkpoint
+        return shard.ShardedBlock(outs), shard.to_shard(
+            {**blk.carry, **hand}, self.device)
 
     @staticmethod
     def _stream_fir(x, taps_r, taps_i, W: int, n: int):
@@ -975,7 +1089,7 @@ class Encoder:
                 raise RuntimeError(
                     "SECAM blocks must be encoded sequentially "
                     f"(no IIR carry for block {block_no})")
-            return {"meta": sm, "z0": self._secam_z[block_no]}
+            return {"meta": sm, "host": nm, "z0": self._secam_z[block_no]}
         if block_no not in self._secam_iir:
             raise RuntimeError("SECAM blocks must be encoded sequentially "
                                f"(no IIR state for block {block_no})")
@@ -989,20 +1103,24 @@ class Encoder:
         self._secam_iir.pop(block_no - 2, None)
         add = secam_mod.carrier_addin_host(st, W, nm, chroma,
                                            self._secam_lut)
-        return {"meta": sm, "add": torch.as_tensor(add, device=self.device)}
+        return {"meta": sm, "host": nm,
+                "add": torch.as_tensor(add, device=self.device)}
 
     def _nicam_dev_fn(self, *a):
         """signs_device on this encoder's statics (the seek catch-up)."""
         return nicam_dev.signs_device(self.nicam_dev_statics, *a)
 
-    def encode_block_device(self, block_no: int) -> torch.Tensor:
+    def encode_block_device(self, block_no: int):
         """Synthesise one block of frames_per_block frames; returns a
         device tensor: int16 [nlines, W] for real output modes, or int16
-        [nlines, W, 2] (I, Q) for complex/audio modes."""
+        [nlines, W, 2] (I, Q) for complex/audio modes.  A sharded encoder
+        returns the shards' tensors in line order (shard.ShardedBlock),
+        each on its device."""
         yuv = self._device_rgb(block_no)
         m = self._block_meta(block_no)
         first = 0.0 if block_no == 0 else 1.0
-        out, carry = self._step(yuv, m, first, self._audio_args(block_no))
+        step = self._step if self._plan is None else self._step_sharded
+        out, carry = step(yuv, m, first, self._audio_args(block_no))
         if self.fm_dev_held:
             self._fm_xa[block_no + 1][1] = carry["fm_xa"]
         if self.nicam_statics is not None:
@@ -1118,7 +1236,8 @@ class Encoder:
         video on the host, the FM recurrence runs here over the
         composite (the I channel), so blocks must be collected in
         order."""
-        a = dev.cpu().numpy()
+        a = (dev.host() if isinstance(dev, shard.ShardedBlock)
+             else dev.cpu().numpy())
         if self.fm_video_exact is not None:
             comp = np.ascontiguousarray(a[..., 0]).reshape(-1)
             if self._fm_ed_frame is not None:
@@ -1169,6 +1288,69 @@ class Encoder:
         assert self.frames_per_block == 1
         for f in range(n_frames):
             yield self.encode_frame(f)
+
+
+class _BlockStage:
+    """The block's replicated [nlines]-vector work on one device: the FM
+    carriers' segment assembly (held values, the exact phase prefix sums)
+    and NICAM's bit pipeline.  Each part runs where the row stage first
+    reads it, once for all the device's shards: on one device the card
+    then runs it between the row chain's kernels, where the host's
+    enqueue of it overlaps the card's work, as in an unsharded step.
+    `carry` collects the block's carries ("fm_xa", "nicam_dsym")."""
+
+    def __init__(self, enc: Encoder, yuv, audio: dict):
+        self.enc, self.yuv, self.audio = enc, yuv, audio
+        self.carry: dict = {}
+        self._parts: dict = {}
+
+    def _once(self, name: str, fn):
+        if name not in self._parts:
+            self._parts[name] = fn()
+        return self._parts[name]
+
+    def fm(self) -> tuple:
+        """fm_add's segment arguments of the FM mono carrier."""
+        def part():
+            e = self.enc
+            d = self.audio["fm_mono"]
+            if not e.fm_dev_held:
+                return e._fm_args(d, e.fm_win, e.fm_statics)
+            held = audio_synth.held_device(e.audio.fm_mono, d["pcm"],
+                                           _LIM_HIST)
+            args, self.carry["fm_xa"] = audio_synth.fm_prepare(
+                e.fm_win, e.fm_statics, e.frames_per_block * e.params.lines,
+                held, d["xa"], d["lens_off"], d["offq"], d["offr"],
+                d["col0"], d["ctab"], d["stab"], adv=d["adv"])
+            return args
+        return self._once("fm", part)
+
+    def fm_right(self) -> tuple:
+        """fm_add's segment arguments of the A2 second carrier."""
+        e = self.enc
+        return self._once("fm_right", lambda: e._fm_args(
+            self.audio["fm_right"], e.fm_right_win, e.fm_right_statics))
+
+    def nicam(self) -> tuple:
+        """NICAM's (signs_i, signs_q) for the block."""
+        def part():
+            nc = self.audio["nicam"]
+            si, sq, self.carry["nicam_dsym"] = nicam_dev.signs_device(
+                self.enc.nicam_dev_statics, nc["pcm"], nc["dsym_in"],
+                nc["famod16"], nc["base_off"], nc["nkeep"])
+            return si, sq
+        return self._once("nicam", part)
+
+
+def _fm_window(args: tuple, a: int, n: int, whole: bool) -> tuple:
+    """fm_add's segment arguments (seg_val, seg_cnt, seg_col, ctab, stab,
+    unit) of a whole block, for its lines [a, a + n)."""
+    if whole:
+        return args
+    seg_val, seg_cnt, seg_col, ctab, stab, unit = args
+    return (seg_val[a:a + n], seg_cnt[a:a + n], seg_col[a:a + n],
+            shard.period_window(ctab, a, n), shard.period_window(stab, a, n),
+            unit)
 
 
 class _OrientedSource:

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .shard import ShardedBlock
+
 
 def _sum_wrap(outs) -> torch.Tensor:
     """Wrap-add int16 blocks (real [nlines, W] or I/Q [nlines, W, 2]):
@@ -51,15 +53,24 @@ class MuxEncoder:
     def frame_samples(self) -> int:
         return self.channels[0].frame_samples
 
-    def encode_block_device(self, block_no: int) -> torch.Tensor:
+    def encode_block_device(self, block_no: int):
+        """The channels' blocks wrap-added on the device; channels sharded
+        alike (`devices=`) are added shard by shard."""
         outs = [c.encode_block_device(block_no) for c in self.channels]
+        if isinstance(outs[0], ShardedBlock):
+            return ShardedBlock(self._sum(parts) for parts in zip(*outs))
+        return self._sum(outs)
+
+    @staticmethod
+    def _sum(outs) -> torch.Tensor:
         shapes = {(tuple(o.shape), o.dtype, o.device) for o in outs}
         if len(shapes) != 1:
             raise ValueError(f"mux channel blocks differ: {shapes}")
         return _sum_wrap(outs)
 
-    def collect_block(self, block_no: int, dev: torch.Tensor) -> np.ndarray:
-        a = dev.cpu().numpy()
+    def collect_block(self, block_no: int, dev) -> np.ndarray:
+        a = (dev.host() if isinstance(dev, ShardedBlock)
+             else dev.cpu().numpy())
         if a.ndim == 3:
             return a.reshape(-1, 2)
         return a.reshape(-1)

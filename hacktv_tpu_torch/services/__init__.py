@@ -21,3 +21,16 @@ def arrays_to_device(arrays: dict, device) -> dict:
         else:
             out[k] = v
     return out
+
+
+def window_arrays(svc, arrays: dict, r0: int, r1: int) -> dict:
+    """A service's block arrays (on the device) for the block rows
+    [r0, r1), one shard's window: every per-row array sliced, the
+    per-block values (the service's `block_keys`) kept; a service whose
+    rows are not independent windows them itself (`window_arrays`)."""
+    own = getattr(svc, "window_arrays", None)
+    if own is not None:
+        return own(arrays, r0, r1)
+    keep = getattr(svc, "block_keys", ())
+    return {k: v if k in keep or not isinstance(v, torch.Tensor)
+            else v[r0:r1] for k, v in arrays.items()}

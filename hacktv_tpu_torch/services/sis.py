@@ -272,6 +272,20 @@ class SiS:
         return {"syms": pad, "r0": int((44 * i0) % 125),
                 "warm": np.float32(1.0 if k0 == -1 else 0.0)}
 
+    def window_arrays(self, arrays, r0: int, r1: int) -> dict:
+        """The block arrays for the block rows [r0, r1) (one shard's
+        window): the rows' symbols start where those of the rows before
+        r0 end, and the warm-up row is the block's row 1 where the
+        window holds it."""
+        j = np.arange(r0, dtype=np.int64)
+        skip = int(np.sum(24 - np.where((arrays["r0"] + 44 * j) % 125 >= 81,
+                                        2, 0)))
+        out = dict(arrays)
+        out["syms"] = arrays["syms"][skip:]
+        out["r0"] = (arrays["r0"] + 44 * r0) % 125
+        out["row1"] = 1 - r0 if r0 <= 1 < r1 else None
+        return out
+
     def apply(self, out, arrays, lut=None):
         out = out.clone()
         # stream start: the reference's warm-up burst lands on line 1
@@ -279,10 +293,11 @@ class SiS:
         # is the identity for in-range composite when warm == 0
         row1_pre = None
         nw = len(self.warmup_spill)
-        if nw:
-            r0 = out[1, :nw] + arrays["warm"] * self.d_spill
-            out[1, :nw] = torch.remainder(r0 + 32768.0, 65536.0) - 32768.0
-            row1_pre = out[1].clone()
+        w1 = arrays.get("row1", 1)
+        if nw and w1 is not None:
+            r0 = out[w1, :nw] + arrays["warm"] * self.d_spill
+            out[w1, :nw] = torch.remainder(r0 + 32768.0, 65536.0) - 32768.0
+            row1_pre = out[w1].clone()
         L, N = self.blank_left, self.blank_width
         win = self.d_win[None, :]
         region = out[:, L:L + N]
@@ -298,7 +313,7 @@ class SiS:
             a = torch.round(row1_pre[L:L + N]).to(torch.int32)
             w = self.d_win_i
             t = a * (32767 - w) + int(round(self.blank_level)) * w
-            out[1, L:L + N] = (t >> 15).to(out.dtype)
+            out[w1, L:L + N] = (t >> 15).to(out.dtype)
         # device-side quit-bit matrix: run-in + grey-coded symbol bits
         # at per-row offset (0/4 for the 48/44-bit rate adaptation)
         n = out.shape[0]

@@ -60,6 +60,8 @@ class WSS:
 
     STATICS = ("basis", "bits")
     _CKPT_ATTRS = ("bits",)
+    # block arrays that are not per row (services.window_arrays)
+    block_keys = ("wave",)
 
     def __init__(self, params, mode: str, device="cuda"):
         try:

@@ -37,7 +37,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from .. import runtime
+from .. import runtime, shard
 from ..audio.mac_audio import MacAudioEnc
 from ..config.standards import MacMode, Modulation, OutputType, VidConfig, \
     get_mode
@@ -1354,7 +1354,9 @@ class MacEncoder:
                  device="cuda", native: bool = True):
         from ..encoder import resolve_device
         if devices is not None:
-            raise NotImplementedError("multiple devices are not ported yet")
+            # the first shard's device holds the host state's tensors
+            devices = shard.resolve_devices(devices)
+            device = devices[0]
         self.device = resolve_device(device)
         conf = get_mode(mode) if isinstance(mode, str) else mode
         if conf.mac_mode is None:
@@ -1364,6 +1366,17 @@ class MacEncoder:
         self.S = int(sample_rate)
         self.P = int(pixel_rate) or self.S
         self.frames_per_block = frames_per_block
+        # line-axis sharding over `devices` (shard.py): the multiplex
+        # and the line-bit assembly run once per block (per device), the
+        # raster per shard
+        self._plan = None
+        if devices is not None and len(devices) > 1:
+            self._plan = shard.ShardPlan.create(
+                devices, frames_per_block * mb.MAC_LINES)
+        self._replicas: dict = {}
+        self._moved: dict = {}
+        self.shard_timing = False
+        self.shard_events: list = []
 
         line_dur = conf.frame_rate.den / (conf.frame_rate.num * conf.lines)
         self.width = W = round(self.P * line_dur)
@@ -1426,6 +1439,18 @@ class MacEncoder:
             self.resampler = resampler.make_block_statics(
                 rs, W, self.out_width,
                 frames_per_block * mb.MAC_LINES, halo_lines=1)
+            if self._plan is not None:
+                # as Encoder's: an inner shard resamples a line further
+                ns = self._plan.lines_per_shard
+                self._rs_shard = tuple(resampler.make_block_statics(
+                    rs, W, self.out_width, ns, halo_lines=h)
+                    for h in (1, 2))
+        if self._plan is not None:
+            # the raster's rows: the block's lines and, with the
+            # resampler, a halo line each side
+            halo = 1 if self.resampler is not None else 0
+            self._windows = self._plan.windows(
+                frames_per_block * mb.MAC_LINES + 2 * halo, 3 * halo, 0)
 
         # the audio lineprocess runs on *output* lines (post-resampler,
         # src/video.c:3273-3277), so pair timing uses the output width
@@ -1629,6 +1654,16 @@ class MacEncoder:
                            xc2, fm_r0, first)
 
     def _step_impl_dev(self, buf, pol_c, planes, meta, fm_r0):
+        """The device-bits step: the line bits assembled on the device
+        (`_bits_dev`), then the raster.  Returns (samples, the FM carry
+        or None, the polarity carry)."""
+        bits, p0, scr_apply, xc1, xc2, first, carry = self._bits_dev(
+            buf, pol_c)
+        out, fm_carry = self._synth(bits, p0, planes, meta, scr_apply, xc1,
+                                    xc2, fm_r0, first)
+        return out, fm_carry, carry
+
+    def _bits_dev(self, buf, pol_c):
         """Device-side line-bit assembly (mux.device_mode): gather the
         static (sync + whitening) base row per line, XOR the consumed
         packet-stream slices in at the data-burst columns
@@ -1636,7 +1671,8 @@ class MacEncoder:
         and run the duobinary start-polarity scan with a cross-block
         carry (src/mac.c:193-203).  All per-block host data arrives in
         the single packed uint8 buffer laid out by self._lay.  Returns
-        (samples, the FM carry or None, the polarity carry)."""
+        (the line bits, their start polarities [rows, 1], scr_apply, xc1,
+        xc2, first, the polarity carry)."""
         nbits = self.mux.nbits
         nsub = 2 if self.mux.mode_d else 1
         x0 = 7 if self.mux.mode_d else 6
@@ -1699,9 +1735,7 @@ class MacEncoder:
         # next block's first row is this upload's row n; cum_ex[n] is
         # the inclusive flip count of rows 0..n-1
         carry = (pol_c * (1 - 2 * (cum_ex[n] & 1))).to(torch.int32)
-        out, fm_carry = self._synth(bits, polrow[:, None], planes, meta,
-                                    scr_apply, xc1, xc2, fm_r0, first)
-        return out, fm_carry, carry
+        return bits, polrow[:, None], scr_apply, xc1, xc2, first, carry
 
     def symbols(self, bits, p0):
         """Duobinary symbols f64 [rows, nbits]: the polarity flips on
@@ -1744,12 +1778,25 @@ class MacEncoder:
         return canvas
 
     def _synth(self, bits, p0, planes, meta, scr_apply, xc1, xc2,
-               fm_r0, first):
+               fm_r0, first, win: shard.Window | None = None):
         """Line bits -> samples; returns (samples, the FM carry or
-        None)."""
+        None).  With `win`, one shard's lines [win.a, win.b) of the
+        block's: its rows [win.r0, win.r1) with the resampler's halo (an
+        inner shard's one row more, as Encoder's), and the bits' row
+        each side."""
         y_img, u_img, v_img = planes
         n = self.frames_per_block * mb.MAC_LINES
         W = self.width
+        rs = self.resampler
+        c0 = 0
+        if win is not None and not win.whole:
+            c0, c1 = win.r0, win.r1
+            bits, p0 = bits[c0:c1 + 2], p0[c0:c1 + 2]
+            meta = {k: v[c0:c1] for k, v in meta.items()}
+            scr_apply, xc1, xc2 = (t[c0:c1] for t in (scr_apply, xc1, xc2))
+            n = win.nlines
+            if rs is not None:
+                rs = self._rs_shard[0 if win.last else 1]
         sym = self.symbols(bits, p0)
         # duobinary laid down before this line's overwrites: own bits +
         # the previous line's forward spill.  The NEXT line's backward
@@ -1801,13 +1848,13 @@ class MacEncoder:
         # vision scrambling rotations (src/mac.c:1604-1620, 1836-1864)
         canvas = self.cut(canvas, scr_apply, xc1, xc2)
 
-        if self.resampler is not None:
+        if rs is not None:
             # pixel -> sample rate polyphase resample (block 0's leading
             # halo row is zeroed: the reference's FIR window starts
             # zero-filled, src/fir.c:263-313)
-            canvas[0] *= first
-            y = resampler.device_resample_block(self.resampler,
-                                                canvas.reshape(-1))
+            if c0 == 0:
+                canvas[0] *= first
+            y = resampler.device_resample_block(rs, canvas.reshape(-1))
             wo = self.out_width
             canvas = y[wo:wo * (n + 1)].reshape(n, wo)
 
@@ -1897,6 +1944,13 @@ class MacEncoder:
         meta = self._line_meta()
         fm_r0 = (self._fm_r[block_no] if self.fm_video_statics is not None
                  else None)
+        if self._plan is not None:
+            out, fm_carry = self._encode_sharded(block_no, prep, planes,
+                                                 meta, fm_r0)
+            if fm_carry is not None:
+                self._fm_r[block_no + 1] = fm_carry
+                self._fm_r.pop(block_no - 2, None)
+            return out
         t = lambda a: torch.as_tensor(a).to(self.device)
         if prep[0] == "dev":
             out, fm_carry, pol_carry = self._step_impl_dev(
@@ -1916,6 +1970,49 @@ class MacEncoder:
             self._fm_r[block_no + 1] = fm_carry
             self._fm_r.pop(block_no - 2, None)
         return out
+
+    # names of the device statics, replicated on each further device of
+    # a sharded encoder
+    _DEVICE_STATICS = ("d_bases", "d_base_bits", "d_video_scale",
+                       "fm_video_statics")
+
+    def _encode_sharded(self, block_no: int, prep, planes, meta, fm_r0):
+        """One block over the shard plan: the line bits once per distinct
+        device, then each shard's raster on its device, the FM-video
+        phase sum handed from shard to shard.  Returns
+        (shard.ShardedBlock, the FM carry or None)."""
+        stages = {}
+        for dev in self._plan.distinct():
+            rep = shard.replica(self, dev, self._DEVICE_STATICS)
+            t = lambda a: torch.as_tensor(a).to(dev)
+            if prep[0] == "dev":
+                bits, p0, scr, xc1, xc2, first, pol = rep._bits_dev(
+                    t(prep[1]), shard.to_shard(self._pol_c[block_no], dev))
+            else:
+                _, packed, pol0, scr, xc1, xc2 = prep
+                bits = device_unpack_bits(t(packed), self.mux.nbits,
+                                          torch.int32)
+                p0 = t(pol0).to(torch.int32)[:, None]
+                scr, xc1, xc2 = t(scr), t(xc1), t(xc2)
+                first = torch.tensor(0.0 if block_no == 0 else 1.0,
+                                     device=dev)
+                pol = None
+            stages[shard.device_key(dev)] = (
+                rep, (bits, p0, shard.on(self, dev, "planes", planes),
+                      shard.on(self, dev, "meta", meta), scr, xc1, xc2),
+                first, pol)
+        outs = []
+        self.shard_events = []
+        for win in self._windows:
+            rep, args, first, pol = stages[shard.device_key(win.device)]
+            fm_r0 = shard.to_shard(fm_r0, win.device)
+            out, fm_r0 = shard.timed(self, win, lambda: rep._synth(
+                *args, fm_r0, first, win))
+            outs.append(out)
+        if pol is not None:
+            self._pol_c[block_no + 1] = shard.to_shard(pol, self.device)
+            self._pol_c.pop(block_no - 2, None)
+        return shard.ShardedBlock(outs), shard.to_shard(fm_r0, self.device)
 
     # ------------------------------------------------------------------
     # Stream checkpoint/resume: the packet multiplex, CA, audio-coder and
@@ -1992,7 +2089,8 @@ class MacEncoder:
                                   self.encode_block_device(block_no))
 
     def collect_block(self, block_no: int, dev) -> np.ndarray:
-        a = dev.cpu().numpy()
+        a = (dev.host() if isinstance(dev, shard.ShardedBlock)
+             else dev.cpu().numpy())
         if a.ndim == 3:
             return a.reshape(-1, 2)
         return a.reshape(-1)

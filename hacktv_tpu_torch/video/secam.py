@@ -261,6 +261,23 @@ def line_meta(p, k0: int, n: int, vframe_y: int, vframe_h: int) -> dict:
                 field_id=field_id)
 
 
+def window_meta(meta: dict, nm: dict, r0: int, r1: int, t: int) -> dict:
+    """The device metadata (meta_to_device) of the block rows [r0, r1),
+    one shard's window, from the block's (`nm`, its host block_meta).
+    The IIR chain's rows before the window read the carried z, which
+    is the end state of the last active row before r0; the window's
+    `snap_row` is the last active row before block row `t` (the next
+    window's first row, or the block's end), -1 for the carried z
+    where that row lies before the window."""
+    out = {k: v[r0:r1] for k, v in meta.items() if k != "snap_row"}
+    ip = out["iir_prev"]
+    out["iir_prev"] = torch.where(ip >= r0, ip - r0, -1)
+    act = np.flatnonzero((nm["active"][:t] > 0) & (nm["valid"][:t] > 0))
+    snap = int(act[-1]) if len(act) else -1
+    out["snap_row"] = snap - r0 if snap >= r0 else -1
+    return out
+
+
 def block_meta(p, k0: int, n: int, nlines: int, vframe_y: int,
                vframe_h: int) -> dict:
     """`line_meta` for the rows [k0, k0+n) of a block whose first stream

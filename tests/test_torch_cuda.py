@@ -8,9 +8,10 @@ services, the scramblers and DANCE among its configurations), DANCE's
 two-part pulse product under TF32, the scramblers' applies and the
 D/D2-MAC encoders (their f64 duobinary products with TF32 on and off,
 the cuts, Eurocrypt, teletext, the resampler, the pipelined multiplex),
-moving sources in 4-frame blocks and the LUT gather, and checkpoints
-written on one device and resumed on the other, on the card against
-their CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
+moving sources in 4-frame blocks and the LUT gather, checkpoints
+written on one device and resumed on the other, and the encoders sharded
+over 2 and 4 shards of the card (`devices=`), on the card against their
+CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -682,3 +683,35 @@ def test_mac_checkpoint_card_resumes_on_cpu(cuda):
     assert r.load_checkpoint(blob) == 2
     for b in (2, 3):
         assert np.array_equal(r.encode_block(b), ref[b]), b
+
+
+SHARDED_CASES = {
+    "i-vsb": ("i", 4_000_000, {"vfilter": True}),
+    "l-syster-vsb": ("l", 4_000_000, {"vfilter": True,
+                                      "syster": "premiere-fa"}),
+    "pal-8-from-16": ("pal", 8_000_000, {"pixel_rate": 16_000_000}),
+    "pal-fm-swap": ("pal-fm", 16_000_000, {"swap_iq": True}),
+}
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", sorted(SHARDED_CASES))
+def test_sharded_card_matches_cpu(cuda, name, n):
+    """4-frame blocks 0-2 in n shards on the card against one device on
+    the CPU, byte for byte."""
+    mode, rate, kw = SHARDED_CASES[name]
+    c = Encoder(mode, rate, frames_per_block=4, device="cpu", **kw)
+    g = Encoder(mode, rate, frames_per_block=4, devices=[cuda] * n, **kw)
+    for b in range(3):
+        _, mx, nd = tc.error_report(g.encode_block(b), c.encode_block(b))
+        assert nd == 0, f"{name} x{n} block {b}: {nd} samples differ"
+
+
+def test_sharded_mac_card_matches_cpu(cuda):
+    """D2-MAC FM with Eurocrypt, 4-frame blocks 0-2 in 2 shards on the
+    card against one device on the CPU."""
+    kw = {"eurocrypt": "filmnet", "scramble_audio": True}
+    c = _mac("d2mac-fm", kw, "cpu", fpb=4)
+    g = _mac("d2mac-fm", dict(kw, devices=[cuda] * 2), cuda, fpb=4)
+    for b in range(3):
+        assert np.array_equal(g.encode_block(b), c.encode_block(b)), b

@@ -130,18 +130,20 @@ def test_blocks_must_be_sequential():
         t.encode_block_device(2)
 
 
-@pytest.mark.parametrize("mode,kw", [("l", {"pixel_rate": 13_500_000}),
-                                     ("d2mac", {"devices": ["cuda:0",
-                                                            "cuda:1"]}),
-                                     ("pal", {"devices": ["cuda:0",
-                                                          "cuda:1"]}),
-                                     ("pal", {"eurocrypt": "filmnet"}),
-                                     ("d2mac-fm", {"devices": ["cuda:0"]})])
-def test_unported_options_raise(mode, kw):
-    """Options the port does not cover yet; for the MAC modes (their own
-    encoder, video/mac.py) the line-axis sharding over devices."""
+@pytest.mark.parametrize("mode,kw,exc", [
+    ("l", {"pixel_rate": 13_500_000}, NotImplementedError),
+    ("d2mac", {"devices": ["cpu"] * 3}, ValueError),
+    ("pal", {"devices": ["cpu"] * 3}, ValueError),
+    ("pal", {"eurocrypt": "filmnet"}, NotImplementedError),
+    ("d2mac-fm", {"devices": ["cpu"] * 7}, ValueError)],
+    ids=["l-kw0", "d2mac-kw1", "pal-kw2", "pal-kw3", "d2mac-fm-kw4"])
+def test_unported_options_raise(mode, kw, exc):
+    """Options the port does not cover (SECAM with --pixelrate, which the
+    JAX package cannot run either; Eurocrypt outside MAC), and, for the
+    line-axis sharding over devices of both encoders, a block whose
+    lines do not divide over the devices (625 over 3 and 7)."""
     from hacktv_tpu_torch.config.standards import get_mode
     from hacktv_tpu_torch.video.mac import MacEncoder
     cls = MacEncoder if get_mode(mode).mac_mode is not None else TEncoder
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         cls(mode, 16_000_000, device="cpu", **kw)

@@ -151,18 +151,21 @@ def test_secam_blocks_must_be_sequential():
         TEncoder("secam", RATE, device="cpu").encode_block(3)
 
 
-@pytest.mark.parametrize("kw", [{"pixel_rate": 13_500_000},
-                                {"devices": ["cuda:0", "cuda:1"]},
-                                {"moving": True, "pixel_rate": 13_500_000}])
-def test_unported_secam_options_raise(kw):
+@pytest.mark.parametrize("kw,exc", [
+    ({"pixel_rate": 13_500_000}, NotImplementedError),
+    ({"devices": ["cpu"] * 3}, ValueError),
+    ({"moving": True, "pixel_rate": 13_500_000}, NotImplementedError)],
+    ids=["kw0", "kw1", "kw2"])
+def test_unported_secam_options_raise(kw, exc):
     """SECAM with the video resampler (--pixelrate, which the JAX package
     cannot run either), also from a moving-video source (which SECAM
-    takes without it, tests/test_torch_moving.py), and on several devices
-    raise; none falls back to another path."""
+    takes without it, tests/test_torch_moving.py), raises; none falls
+    back to another path.  Sharded over devices (tests/test_torch_
+    devices_*.py), a block that does not divide over them is refused."""
     kw = dict(kw)
     conf = tget_mode("l")
     if kw.pop("moving", False):
         # a source without `stateless` reads new frames as it goes
         kw["source"] = type("Moving", (), {"width": 10, "height": 10})()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         TEncoder(conf, RATE, device="cpu", **kw)
