@@ -21,7 +21,8 @@ pal-i-teletext-vsb (Encoder("i", 16 MS/s, --filter, teletext from
 tests/data/demo.tti, WSS 16:9, VITS, VITC): the UK terrestrial signal),
 m-cc608-acp (Encoder("m", 13.5 MS/s, CEA-608, ACP, VITS, VITC): NTSC-M
 with line-21 captions and copy protection) and i-sis (Encoder("i", 16
-MS/s, sis="dcsis"): PAL-I with NICAM sound-in-syncs), i-videocrypt-vsb
+MS/s, sis="dcsis"): PAL-I with NICAM sound-in-syncs, coded by the
+native runtime), i-videocrypt-vsb
 (Encoder("i", 16 MS/s, --filter, videocrypt="free"): PAL-I scrambled for
 Sky's Videocrypt decoders), l-syster-vsb (Encoder("l", 16 MS/s, --filter,
 syster="premiere-fa", systeraudio=True): Canal+ France, Nagravision
@@ -72,7 +73,10 @@ Phases, one line each (any failure exits non-zero before the result):
      block's shapes: its host block_arrays per block, its apply on the
      card against the CPU (byte-equal required) and its card time;
      teletext's render against its bound, and with TF32 on (byte-equal
-     to the CPU required);
+     to the CPU required); and sis-coder: SiS's block_arrays with the
+     native NICAM coder and with numpy's, on two i-sis encoders in turns,
+     and both coders alone on the same 2,560 frames: their host ms,
+     byte-equal required;
   8. scramble: each scrambler of the scrambled paths and of Videocrypt
      S, Syster with cut-and-rotate and Discret 11 at the 64-frame
      block's shapes: its host block_arrays per block, its apply on the
@@ -161,7 +165,7 @@ Phases, one line each (any failure exits non-zero before the result):
      frames each of -m i, -m i --filter with
      teletext, WSS, VITS and VITC, -m pal-fm --filter, -m pal --s-video
      --filter, -m i --pixelrate 14750000, -m i --filter --videocrypt
-     free, -m ntsc-bs, -m d2mac-fm --eurocrypt ctv and -m dmac
+     free, -m i --filter --sis dcsis, -m ntsc-bs, -m d2mac-fm --eurocrypt ctv and -m dmac
      --double-cut, and 128 frames of the moving file with -m i --filter
      (and --letterbox), to files through the native sink; and -o hackrf
      with no HackRF: a non-zero exit naming libhackrf, no file.
@@ -950,6 +954,60 @@ def vbi_phase() -> None:
             out_g, out_c = rg, rc
         del g, c, out_g, out_c, rg, rc
         torch.cuda.empty_cache()
+        if path == "i-sis":
+            sis_coder_phase(spec)
+
+
+def sis_coder_phase(spec) -> None:
+    """SiS's NICAM frame coder, the native runtime's against the numpy
+    one, on the host: two i-sis encoders on the same seeded sound, one
+    with each coder, SiS's block_arrays at the 64-frame block (block 0
+    untimed, then blocks 1-4 in turns, median), and both coders alone on
+    the same 2,560 frames of that sound (about one block's, median of 5):
+    byte-equal required."""
+    from hacktv_tpu_torch.audio import nicam
+    encs = {}
+    for native in (True, False):
+        e = build(spec, "cuda", noise_source(spec), FPB)
+        e.services[0].native = native
+        encs[native] = e
+    nl = FPB * encs[True].params.lines
+    n = nl + 1 + encs[True].halo_after
+    host_s = {True: [], False: []}
+    differing = 0
+    for b in range(5):
+        got = {}
+        for native, e in encs.items():
+            t = time.perf_counter()
+            got[native] = e.services[0].block_arrays(b * nl - 1, n,
+                                                     np.zeros(n, bool))
+            if b:
+                host_s[native].append(time.perf_counter() - t)
+        differing += int(np.count_nonzero(got[True]["syms"]
+                                          != got[False]["syms"]))
+    frames = 2560
+    chain = encs[True].services[0].state.chain
+    pcm = np.concatenate([np.zeros((nicam.J17_NTAPS - 1, 2), np.int64),
+                          chain._pcm(0, 32 * frames)])
+    coder_s, out = {True: [], False: []}, {}
+    for _ in range(5):
+        for native in (True, False):
+            t = time.perf_counter()
+            out[native] = nicam.encode_frames(pcm, 0, nicam.MODE_STEREO, 0,
+                                              native=native)
+            coder_s[native].append(time.perf_counter() - t)
+    frame_diff = int(np.count_nonzero(out[True] != out[False]))
+    med = lambda v: f"{statistics.median(v) * 1e3:.3f}"
+    phase("sis-coder", block_arrays_native_ms=med(host_s[True]),
+          block_arrays_numpy_ms=med(host_s[False]),
+          symbols_differing=differing, frames=frames,
+          coder_native_ms=med(coder_s[True]),
+          coder_numpy_ms=med(coder_s[False]),
+          frame_bytes_differing=frame_diff, card=json.dumps(CARD["smi"]))
+    if differing or frame_diff or out[True].shape != (frames, 91):
+        fail("sis-coder: the native NICAM coder differs from numpy's")
+    del encs
+    torch.cuda.empty_cache()
 
 
 def render_phase(svc, packed, n: int, W: int) -> None:
@@ -1768,9 +1826,10 @@ def cli_phase() -> None:
     sink: PAL-I, PAL-FM with the pre-emphasis filter, PAL S-Video with the
     low-pass, PAL-I from 14.75 MS/s pixels, PAL-I with teletext, WSS,
     VITS and VITC through the VSB filter (the teletext clock fixed),
-    PAL-I with Videocrypt through the VSB filter, ntsc-bs, D2-MAC FM with
-    Eurocrypt and baseband D-MAC with the double cut (real output: the
-    sink writes one int16 a sample)."""
+    PAL-I with Videocrypt through the VSB filter, PAL-I with SiS through
+    the VSB filter, ntsc-bs, D2-MAC FM with Eurocrypt and baseband D-MAC
+    with the double cut (real output: the sink writes one int16 a
+    sample)."""
     demo = os.path.join(HERE, "tests", "data", "demo.tti")
     env = {**os.environ, "HACKTV_TPU_TELETEXT_TIME": str(TELETEXT_TIME)}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1784,6 +1843,7 @@ def cli_phase() -> None:
                  (["-m", "i", "--pixelrate", "14750000"], 2 * 640_000),
                  (["-m", "i", "--filter", "--videocrypt", "free"],
                   2 * 640_000),
+                 (["-m", "i", "--filter", "--sis", "dcsis"], 2 * 640_000),
                  (["-m", "ntsc-bs"], 2 * 533_925),
                  (["-m", "d2mac-fm", "--eurocrypt", "ctv", "-s",
                    "20250000"], 2 * 810_000),

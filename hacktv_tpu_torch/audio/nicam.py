@@ -1,5 +1,8 @@
 """NICAM-728 stereo encoder and DQPSK modulator timing model, on the host
-(port of hacktv_tpu/audio/nicam.py, numpy only).
+(port of hacktv_tpu/audio/nicam.py).  The frame coder goes through the
+native runtime (`rt_nicam_encode_frames`), which raises if it does not
+load; `encode_frames(..., native=False)` runs the numpy coder (the plain
+version the tests hold the native one against).
 
 Bit-exact re-implementation of the reference encoder
 (src/nicam728.c:36-249): J.17 pre-emphasis (fixed int32 taps at 32 kHz),
@@ -19,6 +22,8 @@ import math
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import runtime
 
 NICAM_BIT_RATE = 728000
 NICAM_SYMBOL_RATE = NICAM_BIT_RATE // 2
@@ -145,19 +150,54 @@ def scale_factor_indices(blocks: np.ndarray) -> np.ndarray:
     return np.max(need, axis=-1)
 
 
+# the coder's tables as the native call takes them
+_NATIVE_TABLES = (np.ascontiguousarray(J17_TAPS, dtype=np.int32),
+                  np.ascontiguousarray(_SHIFT, dtype=np.int32),
+                  np.ascontiguousarray(_FACTOR, dtype=np.int32),
+                  np.ascontiguousarray(_ILEAVE, dtype=np.int16),
+                  np.ascontiguousarray(_PRN, dtype=np.uint8))
+
+
+def _encode_frames_native(pairs: np.ndarray, n_frames: int,
+                          first_frame_idx: int, mode: int,
+                          reserve: int) -> np.ndarray:
+    """encode_frames through `rt_nicam_encode_frames` (bit-exact with the
+    numpy body, the plain version).  The int16-range PCM is cast to int32
+    exactly; the coder wraps J.17 to int16 at each store as the numpy
+    body does."""
+    if pairs.ndim != 2 or pairs.shape[1] != 2:
+        raise ValueError(f"nicam: want PCM pairs [n, 2], got {pairs.shape}")
+    lib = runtime.load()
+    taps, sh, fa, il, pr = _NATIVE_TABLES
+    x = np.ascontiguousarray(
+        pairs[:n_frames * NICAM_AUDIO_LEN + J17_NTAPS - 1], dtype=np.int32)
+    out = np.empty((n_frames, NICAM_FRAME_BYTES), dtype=np.uint8)
+    lib.rt_nicam_encode_frames(
+        runtime.ptr(x), n_frames, runtime.ptr(taps), len(taps),
+        runtime.ptr(sh), runtime.ptr(fa), runtime.ptr(il), runtime.ptr(pr),
+        int(first_frame_idx), int(mode), int(reserve), runtime.ptr(out))
+    return out
+
+
 def encode_frames(pcm_lr: np.ndarray, first_frame_idx: int,
-                  mode: int = MODE_STEREO, reserve: int = 1) -> np.ndarray:
+                  mode: int = MODE_STEREO, reserve: int = 1,
+                  native: bool = True) -> np.ndarray:
     """Encode consecutive NICAM frames.
 
-    pcm_lr: raw PCM pairs [n_frames*32 + 82, 2], the first 82 rows being
-    the J.17 filter's history (zeros at the stream start); J.17 is
-    applied here.
+    pcm_lr: raw PCM pairs [n_frames*32 + 82, 2] of int16 range, the first
+    82 rows being the J.17 filter's history (zeros at the stream start);
+    J.17 is applied here.
 
-    Returns frame bytes [n_frames, 91] (uint8).
+    Returns frame bytes [n_frames, 91] (uint8).  `native` runs the coder
+    of the native runtime, which raises if it does not load;
+    `native=False` runs the numpy body below.
     """
     hist = J17_NTAPS - 1
     pairs = np.asarray(pcm_lr, dtype=np.int64)
     n_frames = (len(pairs) - hist) // NICAM_AUDIO_LEN
+    if native and n_frames > 0:
+        return _encode_frames_native(pairs, n_frames, first_frame_idx,
+                                     mode, reserve)
 
     # J.17 per channel over the continuous stream
     l = j17_filter(pairs[:, 0])[hist:]

@@ -12,9 +12,10 @@ and `rt_mac_prbs2`, the CA keystreams, and `rt_mac_encode_packet`, called
 from ops/mac_bits.py; `rt_mac_audio_blocks`, the sound coding blocks,
 from audio/mac_audio.py; `rt_mac_mux_replay_packed` and
 `rt_mac_materialize_packed`, the packet multiplex and the line bits, from
-video/mac.py), the threaded file sink (`NativeFileSink`), and the
-hardware sinks' plumbing (rf/hardware.py): the byte FIFO with its prefill
-and EOF (`Fifo`, the reference's src/fifo.c), the sample-format
+video/mac.py), the NICAM-728 frame coder (`rt_nicam_encode_frames`, SiS's
+coder, from audio/nicam.py), the threaded file sink (`NativeFileSink`),
+and the hardware sinks' plumbing (rf/hardware.py): the byte FIFO with its
+prefill and EOF (`Fifo`, the reference's src/fifo.c), the sample-format
 converters (`convert_iq`, `convert_hackrf_iq8`, `convert_hackdac_bb`,
 `convert_fl2k_u8`) and the FL2K audio dither (`Fl2kDither`).
 
@@ -24,6 +25,12 @@ use, to a temporary file renamed into place so that concurrent processes
 never load a half-written library, and rebuilt when older than its source.
 Nothing is written into `native/`.  A missing compiler, a failed build or
 a failed load raises: no caller falls back to another path.
+
+`$HACKTV_RT_DIR`, read at import, points the loader at another build (a
+TSAN or ASAN one, as tools/run_sanitizers.sh makes): the directory's
+`libhacktv_rt.so` is loaded, and compiled there from its `hacktv_rt.cpp`
+only when missing or older than that source.  A directory that holds
+neither file raises, naming it.
 """
 
 from __future__ import annotations
@@ -40,10 +47,15 @@ import numpy as np
 
 from .ops.cuda_build import BUILD_DIR
 
-SRC_PATH = os.path.abspath(os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), os.pardir, "native",
-    "hacktv_rt.cpp"))
-LIB_PATH = os.path.join(BUILD_DIR, "libhacktv_rt.so")
+RT_DIR = os.environ.get("HACKTV_RT_DIR") or None
+if RT_DIR:
+    SRC_PATH = os.path.abspath(os.path.join(RT_DIR, "hacktv_rt.cpp"))
+    LIB_PATH = os.path.abspath(os.path.join(RT_DIR, "libhacktv_rt.so"))
+else:
+    SRC_PATH = os.path.abspath(os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), os.pardir, "native",
+        "hacktv_rt.cpp"))
+    LIB_PATH = os.path.join(BUILD_DIR, "libhacktv_rt.so")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 SINK_FIFO_BYTES = 64 << 20     # the file sink's queue between the threads
@@ -58,6 +70,10 @@ _lib = None
 
 
 def _stale() -> bool:
+    if not (os.path.exists(LIB_PATH) or os.path.exists(SRC_PATH)):
+        raise RuntimeError(
+            f"native runtime: neither {LIB_PATH} nor {SRC_PATH} exists"
+            + (f" (HACKTV_RT_DIR={RT_DIR})" if RT_DIR else ""))
     return not (os.path.exists(LIB_PATH)
                 and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SRC_PATH))
 
@@ -70,20 +86,21 @@ def build() -> bool:
         return False
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("g++ not found: the native runtime is built from "
-                           "native/hacktv_rt.cpp at first use")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".hacktv_rt.lock"), "w") as lk:
+        raise RuntimeError(f"g++ not found: the native runtime is built "
+                           f"from {SRC_PATH} at first use")
+    lib_dir = os.path.dirname(LIB_PATH)
+    os.makedirs(lib_dir, exist_ok=True)
+    with open(os.path.join(lib_dir, ".hacktv_rt.lock"), "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         if not _stale():             # another process built it meanwhile
             return False
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_dir)
         os.close(fd)
         try:
             r = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SRC_PATH],
                                capture_output=True, text=True)
             if r.returncode != 0:
-                raise RuntimeError("g++ failed on native/hacktv_rt.cpp:\n"
+                raise RuntimeError(f"g++ failed on {SRC_PATH}:\n"
                                    + r.stderr[-4000:])
             os.replace(tmp, LIB_PATH)
         finally:
@@ -137,6 +154,9 @@ def _declare(lib) -> None:
     lib.rt_mac_mux_replay_packed.argtypes = [
         c.c_long, p, p, p, p, p, p, p, p, p, p, p, p, c.c_int64, p,
         c.c_int64, p, p, c.c_int]
+    lib.rt_nicam_encode_frames.restype = None
+    lib.rt_nicam_encode_frames.argtypes = [
+        p, c.c_long, p, c.c_int, p, p, p, p, c.c_long, c.c_int, c.c_int, p]
     lib.rt_mac_materialize_packed.restype = None
     lib.rt_mac_materialize_packed.argtypes = [
         c.c_long, c.c_long, c.c_long, p, p, c.c_int, p, p, p, p, p, p, p,

@@ -8,8 +8,10 @@ The per-line burst length alternates 48/44 bits (rate adaptation
 accumulator, src/sis.c:173-178), and a new NICAM frame is encoded from
 the most recent 32-pair audio buffer whenever the bit counter wraps.
 
-Host side simulates the per-line bit stream (tiny); the device blends the
-blank window and adds the quit pulses as a basis matmul.
+Host side simulates the per-line bit stream (tiny) and codes the NICAM
+frames 256 at a time through the native runtime's coder (`native=False`:
+the numpy coder); the device blends the blank window and adds the quit
+pulses as a basis matmul.
 """
 
 from __future__ import annotations
@@ -40,10 +42,12 @@ class _SiSState:
     warm-up line the reference's sis process sees before stream line 0
     (its window trails the raster by one slot, src/video.c:4675-4688)."""
 
-    def __init__(self, chain, audio_lag_lines: int, width: int):
+    def __init__(self, chain, audio_lag_lines: int, width: int,
+                 native: bool = True):
         self.chain = chain
         self.lag = audio_lag_lines
         self.W = width
+        self.native = native
         self.fnum = 0
         self.hist = np.zeros((nicam.J17_NTAPS - 1, 2), dtype=np.int64)
 
@@ -111,7 +115,8 @@ class _SiSState:
                 for m in ms]
         pcm = np.concatenate([self.hist] + bufs)
         frames = np.asarray(nicam.encode_frames(
-            pcm, self.fnum, nicam.MODE_STEREO, reserve=0), dtype=np.uint8)
+            pcm, self.fnum, nicam.MODE_STEREO, reserve=0,
+            native=self.native), dtype=np.uint8)
         self.hist = pcm[-(nicam.J17_NTAPS - 1):]
         self.fnum += len(ks)
         syms = ((frames[:, :, None] >> np.array([6, 4, 2, 0])) & 3
@@ -150,6 +155,16 @@ class SiS:
     _SIS_FIELDS = ("fnum", "hist", "_symq", "_symq_base", "_sim",
                    "_sim_e")
 
+    @property
+    def native(self) -> bool:
+        """SiS's NICAM frame coder is the native runtime's (which raises
+        if it does not load); False: the numpy coder."""
+        return self.state.native
+
+    @native.setter
+    def native(self, value: bool) -> None:
+        self.state.native = bool(value)
+
     def ckpt_state(self):
         return {f: copy.deepcopy(getattr(self.state, f))
                 for f in self._SIS_FIELDS}
@@ -159,14 +174,15 @@ class SiS:
             setattr(self.state, f, copy.deepcopy(v))
 
     def __init__(self, params, mode: str, chain, audio_lag_lines: int,
-                 device="cuda"):
+                 device="cuda", native: bool = True):
         if mode != "dcsis":
             raise ValueError(f"sis: unrecognised mode {mode!r}")
         p = params
         if p.conf.lines != 625:
             raise ValueError("sis: requires a 625-line mode")
         self.p = p
-        self.state = _SiSState(chain, audio_lag_lines, p.width)
+        self.state = _SiSState(chain, audio_lag_lines, p.width,
+                               bool(native))
 
         # Quit pulse basis: 25 symbol positions x 2 levels (src/sis.c:32-75)
         level = int(p.white_level - p.black_level)
