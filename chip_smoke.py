@@ -100,7 +100,18 @@ Phases, one line each (any failure exits non-zero before the result):
      block) and the step alone by CUDA events, and for i-moving-vsb the
      LUT's build and upload, a frame's read and fit, the 66-frame
      stack and upload and the card's conversion and gather (int32 and
-     int64 indices);
+     int64 indices); and bench: the port's measurement entry points
+     (hacktv_tpu_torch.bench: --mode all, mux2, i --dynamic and --d2h;
+     tools.service_bench's ten configurations; tools.profile_bench's
+     host share of a 32-frame pal-i block), each JSON line as the entry
+     point prints it, a trial a stream of blocks with one
+     synchronisation at its end, and i --e2e file's sink: its blocks
+     0-1 against a second encoder's collect_block (byte-identical
+     required); dmac with its multiplex pipelined and not, in turns
+     (mac-pipeline); the synchronising calls inside a block of each
+     bench configuration, by source line (bench-syncs, torch's sync
+     debug mode); and i --e2e null's block split into its dispatch,
+     collection and sink write (bench-e2e-split);
   10. the card against the port's CPU path, one-frame blocks 0-3 of each
      path and of SECAM composite, SECAM-L (device and host-exact
      chroma), 405-line system A (AM sound), NTSC-M with A2 at 13.5135
@@ -181,6 +192,7 @@ written to DIR.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
@@ -190,6 +202,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from dataclasses import replace
 
 import numpy as np
@@ -585,15 +598,12 @@ CARD = {}                      # nvidia-smi's name and power limit
 
 
 def card() -> str:
+    from hacktv_tpu_torch.bench import card_line
     name = torch.cuda.get_device_name(0)
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60)
-        line = smi.stdout.strip().splitlines()[0]
-    except (OSError, IndexError, subprocess.SubprocessError):
-        fail("nvidia-smi did not report the card's name and power limit")
+        line = card_line()
+    except RuntimeError as e:
+        fail(str(e))
     print(line, flush=True)
     CARD["smi"] = line
     phase("card", name=json.dumps(name), count=torch.cuda.device_count())
@@ -1315,6 +1325,124 @@ def e2e_phase(sf, path: str, profile_dir) -> dict:
     del enc, out, host
     torch.cuda.empty_cache()
     return launches
+
+
+def bench_phase() -> None:
+    """The port's measurement entry points at their defaults, each JSON
+    line printed as the entry point prints it; i --e2e file's sink kept
+    and its first two blocks held against a second encoder's."""
+    from hacktv_tpu_torch import bench
+    from hacktv_tpu_torch.tools import profile_bench, service_bench
+    t = time.perf_counter()
+    show = lambda line: print(json.dumps(line), flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        sink = os.path.join(d, "i-e2e-file.bin")
+        for name, e2e in bench.ALL_RUNS:
+            keep = sink if e2e == "file" else None
+            show(bench.bench_config(name, e2e, sink_path=keep))
+            if keep:
+                bench_sink_check(bench, name, keep)
+                os.remove(keep)
+    show(bench.bench_config("mux2"))
+    show(bench.bench_config("i", dynamic=True))
+    show(bench.d2h_bandwidth())
+    for label, (mode, rate, kw) in service_bench.CONFIGS.items():
+        show(service_bench.bench_one(label, mode, rate, kw))
+    show(profile_bench.profile()[0])
+    mac_pipeline_check(bench)
+    bench_sync_check(bench)
+    bench_e2e_split(bench)
+    phase("bench", seconds=f"{time.perf_counter() - t:.1f}")
+
+
+def bench_sync_check(bench) -> None:
+    """Where the host waits for the card inside a block of each bench
+    configuration: block 2 (after blocks 0-1, each waited for) under
+    torch's sync debug mode, which warns at each synchronising call (a
+    copy between the card and pageable host memory, .item(), ...): the
+    count and the source lines that made them."""
+    for name in bench._CONFIGS:
+        enc = bench.make_encoder(name)
+        for b in range(2):
+            bench.wait(enc.encode_block_device(b))
+        with warnings.catch_warnings(record=True) as ws:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = enc.encode_block_device(2)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        bench.wait(out)
+        bench.stop_mux_worker(enc)
+        sites = collections.Counter(
+            f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in ws
+            if "synchroniz" in str(w.message))
+        phase("bench-syncs", config=name, syncs=sum(sites.values()),
+              sites=",".join(f"{k}x{n}" for k, n in sites.most_common(8)))
+        del enc, out
+
+
+def bench_e2e_split(bench) -> None:
+    """bench's i --e2e null block by its parts, blocks 2-5 of a stream
+    with the one-block lag: the dispatch of block b (encode_block_device),
+    the collection of b - 1 (its wait and copy back) and the sink's
+    write; median ms of each."""
+    from hacktv_tpu_torch import runtime
+    enc = bench.make_encoder("i")
+    sink = runtime.NativeFileSink(os.devnull, "int16", enc.complex_out)
+    ms = {"enqueue": [], "collect": [], "write": []}
+    prev = None
+    for b in range(6):
+        t0 = time.perf_counter()
+        out = enc.encode_block_device(b)
+        t1 = time.perf_counter()
+        if prev is not None:
+            host = enc.collect_block(b - 1, prev)
+            t2 = time.perf_counter()
+            sink.write(host)
+            t3 = time.perf_counter()
+            if b >= 2:
+                for k, dt in zip(ms, (t1 - t0, t2 - t1, t3 - t2)):
+                    ms[k].append(dt * 1e3)
+        prev = out
+    sink.close()
+    phase("bench-e2e-split", config="i", e2e="null", blocks="2-5",
+          **{f"{k}_ms": f"{statistics.median(v):.2f}" for k, v in ms.items()})
+
+
+def mac_pipeline_check(bench) -> None:
+    """bench's dmac (dmac-fm, 32-frame blocks) with its multiplex on the
+    main thread and on the pipeline's worker (pipeline_mux), in turns
+    off, on, on, off: the median trial's ms a block, timed as bench
+    times a stream."""
+    from hacktv_tpu_torch.config import get_mode
+    from hacktv_tpu_torch.video.mac import MacEncoder
+    ms = {False: [], True: []}
+    for pipe in (False, True, True, False):
+        enc = MacEncoder(get_mode("dmac-fm"), 20_250_000, 0,
+                         frames_per_block=32, pipeline_mux=pipe)
+        trial_s = bench.stream_trials(enc.encode_block_device)
+        bench.stop_mux_worker(enc)
+        ms[pipe].append(statistics.median(trial_s) / 8 * 1e3)
+        del enc
+    phase("mac-pipeline", config="dmac", frames_per_block=32,
+          off_ms=",".join(f"{x:.2f}" for x in ms[False]),
+          on_ms=",".join(f"{x:.2f}" for x in ms[True]))
+
+
+def bench_sink_check(bench, name: str, path: str) -> None:
+    """The sink file's blocks 0-1 equal a second encoder's collect_block
+    of blocks 0-1 on the card."""
+    enc = bench.make_encoder(name)
+    n = enc.frames_per_block * enc.frame_samples
+    got = np.fromfile(path, np.int16, count=4 * n).reshape(-1, 2)
+    for b in range(2):
+        want = enc.collect_block(b, enc.encode_block_device(b))
+        if not np.array_equal(got[b * n:(b + 1) * n], want):
+            fail(f"bench {name} --e2e file: block {b} of the sink differs "
+                 "from collect_block")
+    phase("bench-sink", config=name, blocks="0-1", samples=2 * n,
+          differing=0)
 
 
 def busy_phase(enc, path: str, b: int, block_s: float) -> None:
@@ -2350,6 +2478,8 @@ def main() -> int:
             if not rec["launches"]:
                 fail(f"{path}: {rec['name']} was not launched on the main "
                      "path")
+        bench_phase()
+        lap("bench")
         sink_counts = hw_sink_phase(sf)
         for path, rec in recs:
             rec["hw_sink_launches"] = {

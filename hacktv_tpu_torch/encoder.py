@@ -1121,6 +1121,12 @@ class Encoder:
         first = 0.0 if block_no == 0 else 1.0
         step = self._step if self._plan is None else self._step_sharded
         out, carry = step(yuv, m, first, self._audio_args(block_no))
+        self._take_carry(block_no, carry)
+        return out
+
+    def _take_carry(self, block_no: int, carry: dict) -> None:
+        """Keep a step's carries (its device scalars by name) for block
+        block_no + 1."""
         if self.fm_dev_held:
             self._fm_xa[block_no + 1][1] = carry["fm_xa"]
         if self.nicam_statics is not None:
@@ -1132,7 +1138,6 @@ class Encoder:
             # a device scalar: the next block chains on it without a sync
             self._fm_r[block_no + 1] = carry["fm_r"]
             self._fm_r.pop(block_no - 2, None)
-        return out
 
     # ------------------------------------------------------------------
     # Stream checkpoint/resume: the cross-block carries (FM phases, the
