@@ -1,0 +1,14 @@
+"""The complex-tap stream FIR's share of its roofline (the VSB filter): the
+least time of its passes, their bytes and operations counted from the
+stage's shapes at the card's peaks, over the device time of the kernels
+named below, in %."""
+
+import re
+
+from harness.peaks import kernel_roofline_pct
+
+KERNEL = re.compile(r"stream_fir_kernel<2,")
+
+
+def read(ctx):
+    return kernel_roofline_pct(ctx, KERNEL, 2)
