@@ -553,6 +553,16 @@ def noise_source(spec):
     return NoiseSource(p.active_width, conf.active_lines)
 
 
+def fir_launches(since: dict | None = None) -> dict:
+    """Each stream-FIR kernel's launches, by kernel: the program's
+    counters "fir_cplx.launches" and "fir_real.launches"
+    (hacktv_tpu_torch/telemetry.py), since the counts `since`."""
+    from hacktv_tpu_torch import telemetry
+    c = telemetry.counters()
+    now = {k: c.get(k + ".launches", 0) for k in ("fir_cplx", "fir_real")}
+    return now if since is None else {k: now[k] - since[k] for k in now}
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -1259,15 +1269,13 @@ def mac_phase() -> None:
         torch.cuda.empty_cache()
 
 
-def e2e_phase(sf, path: str, profile_dir) -> dict:
+def e2e_phase(path: str, profile_dir) -> dict:
     enc, rate, vfilter = make_path(path, "cuda", FPB)
     # FM video on the host finishes in collect_block (its FM recurrence):
     # there a block is timed to the end of its collection
     host_fm = getattr(enc, "fm_video_exact", None) is not None
-    counts = (sf.fir_cplx, sf.fir_real)
     torch.cuda.reset_peak_memory_stats()
-    for c in counts:
-        c.launches = 0
+    since = fir_launches()
     for b in range(WARM_BLOCKS):
         out = enc.encode_block_device(b)
         if host_fm:
@@ -1287,7 +1295,7 @@ def e2e_phase(sf, path: str, profile_dir) -> dict:
             collect_s.append(time.perf_counter() - tc)
         block_s.append(time.perf_counter() - tb)
     dt = time.perf_counter() - t0
-    launches = {c.__name__: c.launches for c in counts}
+    launches = fir_launches(since)
     nblocks = WARM_BLOCKS + TIMED_BLOCKS
     samples = TIMED_BLOCKS * FPB * enc.frame_samples
     if not host_fm:
@@ -1616,8 +1624,8 @@ def shard_kernel_check(sf, fn, taps, n: int) -> int:
     """A kernel at a shard's shape against its plain version, on a
     stream laid out as the encoder's (a halo line before, half a filter
     before the shard's lines): the count of differing outputs.  These
-    launches are the check's, not a path's: the counts are put back."""
-    before = fn.launches
+    launches are the check's, not a path's: they come after the path's
+    counts are read."""
     nt = taps[0].shape[0]
     gen = torch.Generator(device="cuda").manual_seed(n)
     x = torch.randn(n + nt + 2048, generator=gen, device="cuda") * 8000.0
@@ -1627,20 +1635,17 @@ def shard_kernel_check(sf, fn, taps, n: int) -> int:
                                 taps[1] if len(taps) > 1 else None, n)
     got = got if isinstance(got, tuple) else (got,)
     plain = plain if isinstance(plain, tuple) else (plain,)
-    mism = sum(int((a != b).sum()) for a, b in zip(got, plain))
-    fn.launches = before
-    return mism
+    return sum(int((a != b).sum()) for a, b in zip(got, plain))
 
 
-def sharded_run(sf, enc, ref: list, name: str, timed: int,
+def sharded_run(enc, ref: list, name: str, timed: int,
                 first_timed: int = 0) -> dict:
     """Blocks 0-3 of a sharded encoder against `ref` (one device's), then
     `timed` more blocks from block `first_timed` (default: the one after
     them), timed: median block and enqueue ms, each shard's row stage on
     the card (CUDA events, the last block), peak card memory, launches."""
     torch.cuda.reset_peak_memory_stats()
-    for c in (sf.fir_cplx, sf.fir_real):
-        c.launches = 0
+    since = fir_launches()
     nd = 0
     for b, r in enumerate(ref):
         got = enc.encode_block(b)
@@ -1670,8 +1675,7 @@ def sharded_run(sf, enc, ref: list, name: str, timed: int,
                 median_enqueue_ms=statistics.median(enqueue_s) * 1e3,
                 shard_ms=shard_ms,
                 peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-                launches={c.__name__: c.launches
-                          for c in (sf.fir_cplx, sf.fir_real)})
+                launches=fir_launches(since))
 
 
 def card_runs(ncards: int) -> list:
@@ -1688,7 +1692,7 @@ def full_width_runs(sf, runs: list, counts: dict) -> None:
     spec = PATHS[path]
     one = build(spec, "cuda", noise_source(spec), FPB)
     ref = [one.encode_block(b) for b in range(4)]
-    base = sharded_run(sf, one, [], "one device", DEVICE_TIMED,
+    base = sharded_run(one, [], "one device", DEVICE_TIMED,
                        first_timed=len(ref))
     phase("devices", path=path, shards=1, devices="cuda:0",
           lines=FPB * 625, median_block_ms=f"{base['median_block_ms']:.2f}",
@@ -1704,7 +1708,7 @@ def full_width_runs(sf, runs: list, counts: dict) -> None:
         name = f"{path} x{n} on {','.join(sorted(set(devs)))}"
         enc = build((*spec[:3], {**spec[3], "devices": devs}), "cuda",
                     noise_source(spec), FPB)
-        r = sharded_run(sf, enc, ref, name, DEVICE_TIMED)
+        r = sharded_run(enc, ref, name, DEVICE_TIMED)
         per_block = r["launches"]["fir_cplx"] / r["blocks"]
         mism = shard_kernel_check(sf, sf.fir_cplx, taps, n_block // n)
         phase("devices", path=path, shards=n, devices=",".join(devs),
@@ -1767,7 +1771,7 @@ def devices_phase(sf) -> dict:
         ref = [one.encode_block(b) for b in range(4)]
         del one
         enc = mk(["cuda:0"] * 2)
-        r = sharded_run(sf, enc, ref, path, 0)
+        r = sharded_run(enc, ref, path, 0)
         phase("devices", path=path, shards=2, frames_per_block=MOVING_FPB,
               blocks_0_3_differing=r["differing"],
               launches=json.dumps(r["launches"]).replace(" ", ""))
@@ -2272,7 +2276,7 @@ def feed(enc, sink, frames: int) -> None:
     sink.close()
 
 
-def hw_sink_run(sf, name: str, kind: str, rate: int, frames: int,
+def hw_sink_run(name: str, kind: str, rate: int, frames: int,
                 fir: str, drive, gate_underruns: bool = False) -> int:
     """One run of the hw-sink phase: drive(lib, produced) feeds a sink of
     `kind` on a PacedLib and returns it, closed; the run's line, and the
@@ -2283,12 +2287,11 @@ def hw_sink_run(sf, name: str, kind: str, rate: int, frames: int,
     import io
     lib = PacedLib(rate)
     produced = []
-    for c in (sf.fir_cplx, sf.fir_real):
-        c.launches = 0
+    since = fir_launches()
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
         sink = drive(lib, produced)
-    launches = {c.__name__: c.launches for c in (sf.fir_cplx, sf.fir_real)}
+    launches = fir_launches(since)
     if lib.error is not None:
         fail(f"hw-sink {name}: the paced callback raised {lib.error!r}")
     if lib._thread is None or lib._thread.is_alive():
@@ -2342,7 +2345,7 @@ def hw_sink_run(sf, name: str, kind: str, rate: int, frames: int,
     return launches[fir]
 
 
-def hw_sink_phase(sf) -> dict:
+def hw_sink_phase() -> dict:
     """The hardware sinks at full width, paced by PacedLib at the
     device's clock: pal-i-vsb through the command line (-m i --filter -f
     855250000 -g 47 -o hackrf, 200 frames in its 16-frame blocks, with
@@ -2375,7 +2378,7 @@ def hw_sink_phase(sf) -> dict:
             fail(f"hw-sink: the command line exited {rc}")
         return opened_sinks[0]
     counts["pal-i-vsb-cli"] = ("pal-i-vsb", hw_sink_run(
-        sf, "pal-i-vsb-cli", "hackrf", 16_000_000,
+        "pal-i-vsb-cli", "hackrf", 16_000_000,
         int(HW_SINK_CLI[HW_SINK_CLI.index("--frames") + 1]), "fir_cplx",
         via_cli, gate_underruns=True))
 
@@ -2394,11 +2397,11 @@ def hw_sink_phase(sf) -> dict:
     for fpb in HW_MOVING_FPB:
         name = f"i-moving-vsb-{fpb}f"
         counts[name] = ("i-moving-vsb", hw_sink_run(
-            sf, name, "hackrf", 16_000_000, HW_MOVING_FRAMES, "fir_cplx",
+            name, "hackrf", 16_000_000, HW_MOVING_FRAMES, "fir_cplx",
             via_open_sink("i-moving-vsb", fpb, "hackrf", HW_MOVING_FRAMES)))
         torch.cuda.empty_cache()
     counts["pal-lowpass-fl2k"] = ("pal-lowpass", hw_sink_run(
-        sf, "pal-lowpass-fl2k", "fl2k", 16_000_000, HW_LOWPASS_FRAMES,
+        "pal-lowpass-fl2k", "fl2k", 16_000_000, HW_LOWPASS_FRAMES,
         "fir_real", via_open_sink("pal-lowpass", 16, "fl2k",
                                   HW_LOWPASS_FRAMES)))
     return counts
@@ -2470,7 +2473,7 @@ def main() -> int:
             *MOTION_SIZE), bytes=os.path.getsize(MOTION["path"]),
             seconds=f"{time.perf_counter() - t:.1f}")
         for path in (*PATHS, *MOVING_PATHS, *MAC_PATHS):
-            launches[path] = e2e_phase(sf, path, args.profile)
+            launches[path] = e2e_phase(path, args.profile)
         lap("e2e")
         for path, rec in recs:
             rec["launches"] = launches[path][
@@ -2480,7 +2483,7 @@ def main() -> int:
                      "path")
         bench_phase()
         lap("bench")
-        sink_counts = hw_sink_phase(sf)
+        sink_counts = hw_sink_phase()
         for path, rec in recs:
             rec["hw_sink_launches"] = {
                 run: n for run, (p, n) in sink_counts.items() if p == path}

@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..config.standards import Modulation, Preemph, VidConfig
 from . import dance as dance_mod
 from . import nicam as nicam_mod
@@ -558,6 +559,7 @@ class AudioChain:
         i = np.asarray(i, dtype=np.int64)
         return _ceil_div(self.S * (i + 1), self.A) - 1
 
+    @telemetry.spanned("fm.feed")
     def fm_exact_stream(self, carrier: FMCarrier, n0: int, n1: int
                         ) -> np.ndarray:
         """Per-output-sample held int16 feed for output samples [n0, n1):

@@ -29,6 +29,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import telemetry
+
 
 @dataclass
 class FMStatics:
@@ -735,7 +737,7 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
         c = np.arange(P, dtype=np.int64) + line0
         start = start[c % P] + (c // P) * spp
         k0_mod = (k0_mod + line0) % P
-    idx = torch.as_tensor(start, device=dev)[:, None, None, None] + grid
+    idx = telemetry.upload(start, dev)[:, None, None, None] + grid
     if line0:
         # the windows of lines past the block read nothing it keeps
         idx = idx.clamp_(max=2 * L - 1)

@@ -13,8 +13,10 @@ OpenCV otherwise), fitted to the active picture (--fit, --letterbox,
 --pillarbox, --min-aspect, --max-aspect) and sequenced with -r/--repeat
 and --shuffle; --ffmt and --fopts pass an input format and its options
 to ffmpeg.  Accepted besides: -v/--verbose (the mode report and a
-progress line), --version, --threads (ignored), --profile DIR (a
-torch.profiler trace of the encode loop), -m MODE, --list-modes
+progress line and the sink's counts at close), --version, --threads
+(ignored), --profile DIR (the tracer on, telemetry.py: a torch.profiler
+trace of the encode loop with the program's spans in it, and the spans'
+totals and counters), -m MODE, --list-modes
 [--json], -s RATE, --pixelrate
 RATE, -l LEVEL, -D DEVIATION, -G GAMMA, --fm-energy-dispersal, -i,
 --volume, --nocolour/--nocolor, --s-video, --invert-video, --filter,
@@ -63,6 +65,7 @@ from dataclasses import replace
 
 import numpy as np
 
+from . import telemetry
 from .config.standards import REGISTRY, ColourMode, get_mode, list_modes
 
 
@@ -90,7 +93,8 @@ def _build_parser() -> argparse.ArgumentParser:
     a("--shuffle", action="store_true")
     a("-v", "--verbose", action="store_true")
     a("--profile", default=None, metavar="DIR",
-      help="write a torch.profiler trace of the encode loop into DIR")
+      help="write a torch.profiler trace of the encode loop, with the "
+           "program's spans, and the spans' totals and counters into DIR")
     a("--ffmt", default=None, help="ffmpeg input format hint")
     a("--fopts", default=None, help="ffmpeg input format options")
     a("--threads", action="store_true", help="accepted for compatibility")
@@ -521,6 +525,9 @@ def main(argv=None) -> int:
                                  f"{avail} cuda devices available")
             devices = [f"cuda:{k}" for k in range(args.devices)]
 
+    if args.profile:
+        # the tracer on from here: the encoder's set-up is a span
+        telemetry.enable(True)
     if conf.mac_mode is not None:
         from .video.mac import MacEncoder
         aw, _ = MacEncoder.active_geometry(conf, sample_rate, pixel_rate)
@@ -635,11 +642,9 @@ def main(argv=None) -> int:
                   file=sys.stderr)
         sink.close()
         if args.verbose and hasattr(sink, "stats"):
-            st = sink.stats()
-            print(f"sink: {st['underruns']} underrun"
-                  f"{'s' if st['underruns'] != 1 else ''}, longest "
-                  f"{st['longest_shortfall_bytes']} bytes",
-                  file=sys.stderr)
+            _print_sink_stats(sink.stats())
+        if args.profile:
+            _write_spans(args.profile, sink)
         if hasattr(source, "close"):
             source.close()
         if host_split is not None:
@@ -651,6 +656,35 @@ def main(argv=None) -> int:
                   f"({samples_out / dt / sample_rate:.1f}x realtime)",
                   file=sys.stderr)
     return 0
+
+
+def _print_sink_stats(st: dict) -> None:
+    """-v's line at close: a hardware sink's underruns, or the file
+    sink's conversion and FIFO times, bytes and peak level."""
+    if "underruns" in st:
+        print(f"sink: {st['underruns']} underrun"
+              f"{'s' if st['underruns'] != 1 else ''}, longest "
+              f"{st['longest_shortfall_bytes']} bytes", file=sys.stderr)
+    else:
+        print(f"file sink: {st['bytes_in']} bytes in; converting "
+              f"{st['convert_ns'] / 1e6:.1f} ms, into its FIFO "
+              f"{st['queue_ns'] / 1e6:.1f} ms, FIFO peak "
+              f"{st['fifo_peak_bytes']} bytes", file=sys.stderr)
+
+
+def _write_spans(out_dir: str, sink) -> None:
+    """--profile's record of the tracer (telemetry.take: the spans'
+    totals and counts, the counters, the newest raw spans) and the
+    sink's counts, as out_dir/hacktv_tpu_torch_spans.json; the tracer
+    goes off."""
+    rec = telemetry.take()
+    telemetry.enable(False)
+    if hasattr(sink, "stats"):
+        rec["sink"] = sink.stats()
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "hacktv_tpu_torch_spans.json"),
+              "w") as f:
+        json.dump(rec, f)
 
 
 def _join_parts(part: str, host_split) -> None:

@@ -68,6 +68,7 @@ import torch
 
 from . import runtime
 from . import shard
+from . import telemetry
 from .audio import nicam as nicam_mod
 from .audio import nicam_dev
 from .audio import synth as audio_synth
@@ -77,6 +78,7 @@ from .av.testcard import TestCardSource
 from .config.standards import (ColourMode, Modulation, OutputType, VidConfig,
                                get_mode)
 from .ops import resampler
+from .ops.stream_fir import bind as bind_stream_fir
 from .ops.stream_fir import stream_fir
 from .rf import ops as rf_ops
 from .services import arrays_to_device, window_arrays
@@ -113,7 +115,17 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _wait_queued(out) -> None:
+    """Wait for everything queued so far on the stream of each card that
+    holds a part of `out`: what a copy of `out` issued now would wait
+    behind."""
+    for t in (out if isinstance(out, shard.ShardedBlock) else (out,)):
+        if t.device.type == "cuda":
+            torch.cuda.current_stream(t.device).synchronize()
+
+
 class Encoder:
+    @telemetry.spanned("setup.encoder")
     def __init__(self, mode: str | VidConfig, sample_rate: int,
                  pixel_rate: int = 0, source=None,
                  frames_per_block: int = 1, vfilter: bool = False,
@@ -226,6 +238,10 @@ class Encoder:
                 for a in (op.vfilter_ctaps.real, op.vfilter_ctaps.imag))
         elif op.vfilter_taps is not None:
             self.vf_taps = (torch.as_tensor(op.vfilter_taps), None)
+        if self.vf_taps is not None and self.device.type == "cuda":
+            # the kernels' library is built and loaded at set-up, not in
+            # the first block
+            bind_stream_fir()
 
         # VBI data services, in the reference's registration order
         # (src/video.c:4215-4359): vits, wss, the scramblers, acp, vitc,
@@ -553,10 +569,10 @@ class Encoder:
             meta = dict(meta)
             meta["vy"] = np.where(vy0 >= 0, f_local * (H + 1) + vy0,
                                   f_local * (H + 1) + H)
-        dev = {k: torch.as_tensor(meta[k].astype(np.int64),
-                                  device=self.device) for k in _INDEX_KEYS}
-        dev.update({k: torch.as_tensor(meta[k].astype(np.float32),
-                                       device=self.device)
+        dev = {k: telemetry.upload(meta[k].astype(np.int64), self.device)
+               for k in _INDEX_KEYS}
+        dev.update({k: telemetry.upload(meta[k].astype(np.float32),
+                                        self.device)
                     for k in _FLOAT_KEYS})
         self._meta_cache[key] = dev
         return dev
@@ -582,7 +598,7 @@ class Encoder:
                 return self._rgb_cache[1]
             stack = np.stack([self._read_frame(block_no, j)
                               for j in range(self._nf)])
-            dev = (self._lut(), torch.as_tensor(stack, device=self.device))
+            dev = (self._lut(), telemetry.upload(stack, self.device))
             self._rgb_cache = (("blk", block_no), dev)
             return dev
         rgb = self.source.read_video(block_no * self.frames_per_block)
@@ -597,8 +613,8 @@ class Encoder:
                   "repeats each block's first frame; use "
                   "--frames-per-block 1 for moving video", file=sys.stderr)
         if self._dev_convert:
-            dev = (self._lut(), torch.as_tensor(np.ascontiguousarray(rgb),
-                                                device=self.device))
+            dev = (self._lut(), telemetry.upload(np.ascontiguousarray(rgb),
+                                                 self.device))
             self._rgb_cache = (rgb, dev)
             return dev
         if self.statics.fsc_mode is not None:
@@ -615,7 +631,7 @@ class Encoder:
             # (src/video.c:3944-3953)
             host = raster.rgb_to_yuv_host(self.params, rgb,
                                           secam=self.secam is not None)
-        yuv = tuple(torch.as_tensor(a, device=self.device) for a in host)
+        yuv = tuple(telemetry.upload(a, self.device) for a in host)
         self._rgb_cache = (rgb, yuv)
         # the host-exact SECAM chroma reads the host planes
         self._rgb_host_uv = host[1:]
@@ -625,9 +641,9 @@ class Encoder:
         """The conversion LUT on the device (SECAM's u/v are FM frequency
         offsets, src/video.c:3944-3953), built at first use."""
         if self._yuv_lut is None:
-            self._yuv_lut = torch.as_tensor(
+            self._yuv_lut = telemetry.upload(
                 raster.build_yuv_lut(self.params, self.secam is not None),
-                device=self.device)
+                self.device)
         return self._yuv_lut
 
     def _read_frame(self, block_no: int, j: int) -> np.ndarray:
@@ -929,12 +945,10 @@ class Encoder:
         """Host side of an FM carrier whose held values are computed on
         the host (AudioChain.fm_compact_block or fm_block), as tensors
         where the step reads them on the device."""
-        t = lambda a: torch.as_tensor(np.ascontiguousarray(a),
-                                      device=self.device)
+        t = lambda a: telemetry.upload(np.ascontiguousarray(a), self.device)
         if fw is not None:
             d = self.audio.fm_compact_block(carrier, k0, nlines, fw)
-            d["xa"] = torch.tensor(d["xa"], dtype=torch.int32,
-                                   device=self.device)
+            d["xa"] = t(torch.tensor(d["xa"], dtype=torch.int32))
             for k in ("held", "col0", "ctab", "stab"):
                 d[k] = t(d[k])
         else:
@@ -956,75 +970,58 @@ class Encoder:
         a_k0 = k0 + (1 if self.conf.vfilter else 0) \
             + (1 if self.resampler is not None else 0)
         dev = self.device
+        up = telemetry.upload
         args = {}
         if self.services:
             # one claimed mask: a service skips lines an earlier one took
             n = nlines + 1 + self.halo_after
             claimed = np.zeros(n, dtype=bool)
-            args["services"] = tuple(
-                arrays_to_device(svc.block_arrays(k0 - 1, n, claimed), dev)
-                for svc in self.services)
+            with telemetry.span("dispatch.audio.services"):
+                args["services"] = tuple(
+                    arrays_to_device(svc.block_arrays(k0 - 1, n, claimed),
+                                     dev)
+                    for svc in self.services)
         if self.raw_bb is not None:
-            args["rawbb"] = torch.as_tensor(self.raw_bb.block(
-                k0 - 1, nlines + 1 + self.halo_after), device=dev)
+            args["rawbb"] = up(self.raw_bb.block(
+                k0 - 1, nlines + 1 + self.halo_after), dev)
         if self.passthru is not None:
-            args["passthru"] = torch.as_tensor(self.passthru.block(
-                k0, nlines, self.out_params.width), device=dev)
+            args["passthru"] = up(self.passthru.block(
+                k0, nlines, self.out_params.width), dev)
         if self.fm_dev_held:
-            c = self.audio.fm_mono
-            if not self._fm_xa_started and block_no not in self._fm_xa:
-                # first encoded block may start mid-stream: seed the
-                # anchor with the host-exact pre-span sum
-                i0b = self.audio.fm_dev_i0(a_k0, self.fm_win)
-                self._fm_xa[block_no] = [i0b, torch.tensor(
-                    self.audio.fm_dev_seed_xa(c, i0b, self.fm_win),
-                    dtype=torch.int32, device=self.device)]
-            self._fm_xa_started = True
-            if block_no not in self._fm_xa \
-                    or self._fm_xa[block_no][1] is None:
-                raise RuntimeError(
-                    "FM blocks must be encoded sequentially (no device "
-                    f"phase anchor for block {block_no})")
-            exp_i0, xa = self._fm_xa[block_no]
-            dct, i0, i0n = self.audio.fm_compact_block_dev(
-                c, a_k0, nlines, self.fm_win, xa)
-            if exp_i0 is not None and exp_i0 != i0:
-                raise RuntimeError("FM device anchor mismatch (expected "
-                                   f"i0 {exp_i0}, got {i0})")
-            self._fm_xa[block_no + 1] = [i0n, None]
-            self._fm_xa.pop(block_no - 2, None)
-            for k in ("pcm", "col0", "ctab", "stab"):
-                dct[k] = torch.as_tensor(dct[k], device=self.device)
-            args["fm_mono"] = dct
+            with telemetry.span("dispatch.audio.fm"):
+                args["fm_mono"] = self._held_fm(block_no, a_k0, nlines)
         elif self.fm_statics is not None:
-            args["fm_mono"] = self._host_fm(self.audio.fm_mono, a_k0, nlines,
-                                            self.fm_win)
+            with telemetry.span("dispatch.audio.fm"):
+                args["fm_mono"] = self._host_fm(self.audio.fm_mono, a_k0,
+                                                nlines, self.fm_win)
         if self.fm_exact is not None:
-            args["fm_exact"] = torch.as_tensor(
-                self._fm_exact_block(a_k0, nlines), device=dev)
+            with telemetry.span("dispatch.audio.fm_exact"):
+                args["fm_exact"] = up(self._fm_exact_block(a_k0, nlines),
+                                      dev)
         if self.fm_right_statics is not None:
             args["fm_right"] = self._host_fm(self.audio.fm_right, a_k0,
                                              nlines, self.fm_right_win)
             args["a2_pilot"] = {
-                k: torch.as_tensor(v, device=self.device)
+                k: up(v, dev)
                 for k, v in self.audio.pilot_block(a_k0, nlines).items()}
         if self.am_statics is not None:
             args["am_mono"] = {
-                k: torch.as_tensor(np.ascontiguousarray(v), device=self.device)
+                k: up(np.ascontiguousarray(v), dev)
                 for k, v in self.audio.am_block(self.audio.am_mono, a_k0,
                                                 nlines).items()}
         if self.nicam_statics is not None:
-            nc = self.audio.nicam_device_block(
-                a_k0, nlines, self.nicam_statics, self.nicam_dev_statics,
-                self._nicam_dev_fn)
-            for k in ("pcm", "cc_off"):
-                nc[k] = torch.as_tensor(nc[k], device=self.device)
+            with telemetry.span("dispatch.audio.nicam"):
+                nc = self.audio.nicam_device_block(
+                    a_k0, nlines, self.nicam_statics, self.nicam_dev_statics,
+                    self._nicam_dev_fn)
+                for k in ("pcm", "cc_off"):
+                    nc[k] = up(nc[k], dev)
             args["nicam"] = nc
             args["nicam_k0mod"] = a_k0 % self.nicam_statics.period
         if self.dance_statics is not None:
             dc = self.audio.dance_block(a_k0, nlines, self.dance_statics)
             for k in ("signs_i", "signs_q", "cc_off"):
-                dc[k] = torch.as_tensor(dc[k], device=dev)
+                dc[k] = up(dc[k], dev)
             args["dance"] = dc
             args["dance_k0mod"] = a_k0 % self.dance_statics.period
         if self.fm_video_statics is not None:
@@ -1040,10 +1037,40 @@ class Encoder:
                 self.conf.offset, self.params.sample_rate, k0,
                 self.out_params.width, nlines)
             k = np.maximum(np.arange(k0, k0 + nlines), 0).astype(np.int32)
-            args["offset"] = {name: torch.as_tensor(a, device=dev) for name, a
+            args["offset"] = {name: up(a, dev) for name, a
                               in (("c0", c0), ("s0", s0), ("nz", nz),
                                   ("k", k))}
         return args
+
+    def _held_fm(self, block_no: int, a_k0: int, nlines: int) -> dict:
+        """The FM mono carrier's block arguments where its held values
+        are computed on the device: the PCM window and tables, and the
+        int32 phase anchor chained from the block before."""
+        c = self.audio.fm_mono
+        if not self._fm_xa_started and block_no not in self._fm_xa:
+            # first encoded block may start mid-stream: seed the
+            # anchor with the host-exact pre-span sum
+            i0b = self.audio.fm_dev_i0(a_k0, self.fm_win)
+            self._fm_xa[block_no] = [i0b, telemetry.upload(torch.tensor(
+                self.audio.fm_dev_seed_xa(c, i0b, self.fm_win),
+                dtype=torch.int32), self.device)]
+        self._fm_xa_started = True
+        if block_no not in self._fm_xa \
+                or self._fm_xa[block_no][1] is None:
+            raise RuntimeError(
+                "FM blocks must be encoded sequentially (no device "
+                f"phase anchor for block {block_no})")
+        exp_i0, xa = self._fm_xa[block_no]
+        dct, i0, i0n = self.audio.fm_compact_block_dev(
+            c, a_k0, nlines, self.fm_win, xa)
+        if exp_i0 is not None and exp_i0 != i0:
+            raise RuntimeError("FM device anchor mismatch (expected "
+                               f"i0 {exp_i0}, got {i0})")
+        self._fm_xa[block_no + 1] = [i0n, None]
+        self._fm_xa.pop(block_no - 2, None)
+        for k in ("pcm", "col0", "ctab", "stab"):
+            dct[k] = telemetry.upload(dct[k], self.device)
+        return dct
 
     def _fm_exact_block(self, a_k0: int, nlines: int) -> np.ndarray:
         """The host-exact sound carrier of an FM-video mode for the
@@ -1104,7 +1131,7 @@ class Encoder:
         add = secam_mod.carrier_addin_host(st, W, nm, chroma,
                                            self._secam_lut)
         return {"meta": sm, "host": nm,
-                "add": torch.as_tensor(add, device=self.device)}
+                "add": telemetry.upload(add, self.device)}
 
     def _nicam_dev_fn(self, *a):
         """signs_device on this encoder's statics (the seek catch-up)."""
@@ -1115,13 +1142,22 @@ class Encoder:
         device tensor: int16 [nlines, W] for real output modes, or int16
         [nlines, W, 2] (I, Q) for complex/audio modes.  A sharded encoder
         returns the shards' tensors in line order (shard.ShardedBlock),
-        each on its device."""
-        yuv = self._device_rgb(block_no)
-        m = self._block_meta(block_no)
-        first = 0.0 if block_no == 0 else 1.0
-        step = self._step if self._plan is None else self._step_sharded
-        out, carry = step(yuv, m, first, self._audio_args(block_no))
-        self._take_carry(block_no, carry)
+        each on its device.  With the tracer on (telemetry.py) each stage
+        is a span."""
+        span = telemetry.span
+        with span("dispatch", block_no):
+            with span("dispatch.rgb"):
+                yuv = self._device_rgb(block_no)
+            with span("dispatch.meta"):
+                m = self._block_meta(block_no)
+            first = 0.0 if block_no == 0 else 1.0
+            step = self._step if self._plan is None else self._step_sharded
+            with span("dispatch.audio"):
+                audio = self._audio_args(block_no)
+            with span("dispatch.step"):
+                out, carry = step(yuv, m, first, audio)
+            with span("dispatch.carry"):
+                self._take_carry(block_no, carry)
         return out
 
     def _take_carry(self, block_no: int, carry: dict) -> None:
@@ -1240,29 +1276,43 @@ class Encoder:
         copy of block b with the device compute of block b+1.  For FM
         video on the host, the FM recurrence runs here over the
         composite (the I channel), so blocks must be collected in
-        order."""
-        a = (dev.host() if isinstance(dev, shard.ShardedBlock)
-             else dev.cpu().numpy())
-        if self.fm_video_exact is not None:
-            comp = np.ascontiguousarray(a[..., 0]).reshape(-1)
-            if self._fm_ed_frame is not None:
-                # the frame-locked triangle, added with int16 wrap
-                # (src/video.c:2303) before the FM recurrence
-                t = np.tile(self._fm_ed_frame.reshape(-1),
-                            self.frames_per_block)
-                comp = (((comp.astype(np.int32) + t + 0x8000) & 0xFFFF)
-                        - 0x8000).astype(np.int16)
-            fx = self.fm_video_exact
-            n0 = block_no * comp.size
-            if n0 < fx.n:
-                fx.reset()
-            if fx.n < n0:
-                raise RuntimeError("FM blocks must be collected "
-                                   "sequentially")
-            return fx.process(comp, n0).view(np.int16).reshape(-1, 2)
+        order.  With the tracer on, it first waits for the work queued
+        on the block's cards (`collect.wait`), so that `collect.copy`
+        holds the copy alone."""
+        span = telemetry.span
+        with span("collect", block_no):
+            if telemetry.enabled():
+                with span("collect.wait"):
+                    _wait_queued(dev)
+            with span("collect.copy"):
+                a = (dev.host() if isinstance(dev, shard.ShardedBlock)
+                     else dev.cpu().numpy())
+            if self.fm_video_exact is not None:
+                with span("collect.fm_video"):
+                    return self._fm_video_host(block_no, a)
         if a.ndim == 3:
             return a.reshape(-1, 2)
         return a.reshape(-1)
+
+    def _fm_video_host(self, block_no: int, a: np.ndarray) -> np.ndarray:
+        """The host-exact FM-video recurrence over a block's composite
+        (the I channel of `a`): interleaved int16 I/Q pairs."""
+        comp = np.ascontiguousarray(a[..., 0]).reshape(-1)
+        if self._fm_ed_frame is not None:
+            # the frame-locked triangle, added with int16 wrap
+            # (src/video.c:2303) before the FM recurrence
+            t = np.tile(self._fm_ed_frame.reshape(-1),
+                        self.frames_per_block)
+            comp = (((comp.astype(np.int32) + t + 0x8000) & 0xFFFF)
+                    - 0x8000).astype(np.int16)
+        fx = self.fm_video_exact
+        n0 = block_no * comp.size
+        if n0 < fx.n:
+            fx.reset()
+        if fx.n < n0:
+            raise RuntimeError("FM blocks must be collected "
+                               "sequentially")
+        return fx.process(comp, n0).view(np.int16).reshape(-1, 2)
 
     def block_audio_pcm(self, block_no: int):
         """32 kHz int16 stereo pairs consumed during this block

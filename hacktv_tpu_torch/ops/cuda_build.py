@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 import threading
 
+from .. import telemetry
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -92,7 +94,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(lib_path(name))
+            with telemetry.span("setup.cuda_build"):
+                build_all([name])
+                lib = ctypes.CDLL(lib_path(name))
             _libs[name] = lib
         return lib

@@ -22,7 +22,8 @@ produce I and Q from one pass over xs.
 A tensor on the CPU goes to the plain version (`stream_fir_plain`, a torch
 `addcmul` chain in the same tap order).  A CUDA tensor launches the kernel
 of csrc/stream_fir.cu or raises; there is no fallback.  Each kernel wrapper
-counts its launches in its `launches` attribute.
+counts its launches in the tracer's counter "<name>.launches"
+(telemetry.py).
 
 The kernel takes its taps by value, from the host: on the card path the
 taps must be CPU tensors (the encoder keeps them there), as the JAX
@@ -36,6 +37,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from . import cuda_build
 
 MAX_TAPS = 256          # taps a launch passes by value (csrc kMaxTaps)
@@ -91,19 +93,27 @@ def _check(xs: torch.Tensor, taps: list, n: int) -> int:
     return nt
 
 
-def _launch(xs, taps_r, taps_i, y0, y1, n: int, nt: int) -> None:
+def bind():
+    """The kernels' launch function, built and bound at the first call
+    (an encoder on a card calls it at set-up)."""
     global _fn
     if _fn is None:
-        _fn = cuda_build.load("stream_fir").stream_fir_launch
-        _fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
-                                                ctypes.c_int, ctypes.c_void_p]
-        _fn.restype = ctypes.c_int
+        fn = cuda_build.load("stream_fir").stream_fir_launch
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _launch(xs, taps_r, taps_i, y0, y1, n: int, nt: int) -> None:
+    fn = bind()
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream(xs.device).cuda_stream
-        err = _fn(xs.data_ptr(), taps_r.data_ptr(),
-                  taps_i.data_ptr() if taps_i is not None else None,
-                  y0.data_ptr(), y1.data_ptr() if y1 is not None else None,
-                  n, nt, stream)
+        err = fn(xs.data_ptr(), taps_r.data_ptr(),
+                 taps_i.data_ptr() if taps_i is not None else None,
+                 y0.data_ptr(), y1.data_ptr() if y1 is not None else None,
+                 n, nt, stream)
     if err:
         raise RuntimeError(f"stream_fir kernel launch failed: CUDA error "
                            f"{err}")
@@ -131,7 +141,7 @@ def fir_cplx(xs: torch.Tensor, taps_r: torch.Tensor, taps_i: torch.Tensor,
     yi = torch.empty(n, dtype=torch.float32, device=xs.device)
     yq = torch.empty(n, dtype=torch.float32, device=xs.device)
     _launch(xs, taps_r, taps_i, yi, yq, n, nt)
-    fir_cplx.launches += 1
+    telemetry.count("fir_cplx.launches")
     return yi, yq
 
 
@@ -140,12 +150,8 @@ def fir_real(xs: torch.Tensor, taps_r: torch.Tensor, n: int):
     nt = _check(xs, [taps_r], n)
     y = torch.empty(n, dtype=torch.float32, device=xs.device)
     _launch(xs, taps_r, None, y, None, n, nt)
-    fir_real.launches += 1
+    telemetry.count("fir_real.launches")
     return y
-
-
-fir_cplx.launches = 0
-fir_real.launches = 0
 
 
 def stream_fir(xs: torch.Tensor, taps_r: torch.Tensor,

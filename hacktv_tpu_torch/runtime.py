@@ -19,18 +19,21 @@ prefill and EOF (`Fifo`, the reference's src/fifo.c), the sample-format
 converters (`convert_iq`, `convert_hackrf_iq8`, `convert_hackdac_bb`,
 `convert_fl2k_u8`) and the FL2K audio dither (`Fl2kDither`).
 
-The library is compiled from the repo's `native/hacktv_rt.cpp` with g++
-(the flags of native/Makefile) into `hacktv_tpu_torch/_build/` at first
+The library is compiled with g++ (the flags of native/Makefile) from
+the port's `csrc/hacktv_rt_port.cpp`, which includes the repo's
+`native/hacktv_rt.cpp` whole and adds the file sink's counted write
+(`rt_file_sink_write_counted`), into `hacktv_tpu_torch/_build/` at first
 use, to a temporary file renamed into place so that concurrent processes
-never load a half-written library, and rebuilt when older than its source.
-Nothing is written into `native/`.  A missing compiler, a failed build or
-a failed load raises: no caller falls back to another path.
+never load a half-written library, and rebuilt when older than either
+source.  Nothing is written into `native/`.  A missing compiler, a failed
+build or a failed load raises: no caller falls back to another path.
 
 `$HACKTV_RT_DIR`, read at import, points the loader at another build (a
-TSAN or ASAN one, as tools/run_sanitizers.sh makes): the directory's
-`libhacktv_rt.so` is loaded, and compiled there from its `hacktv_rt.cpp`
-only when missing or older than that source.  A directory that holds
-neither file raises, naming it.
+TSAN or ASAN one): the directory's `libhacktv_rt.so` is loaded, and
+compiled there from `csrc/hacktv_rt_port.cpp` over the directory's
+`hacktv_rt.cpp` only when missing or older than those sources, so a
+library made there from `hacktv_rt.cpp` alone lacks the counted write and
+fails to load.  A directory that holds neither file raises, naming it.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import threading
 
 import numpy as np
 
+from . import telemetry
 from .ops.cuda_build import BUILD_DIR
 
 RT_DIR = os.environ.get("HACKTV_RT_DIR") or None
@@ -56,6 +60,8 @@ else:
         os.path.dirname(os.path.abspath(__file__)), os.pardir, "native",
         "hacktv_rt.cpp"))
     LIB_PATH = os.path.join(BUILD_DIR, "libhacktv_rt.so")
+PORT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                        "hacktv_rt_port.cpp")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
 SINK_FIFO_BYTES = 64 << 20     # the file sink's queue between the threads
@@ -75,7 +81,8 @@ def _stale() -> bool:
             f"native runtime: neither {LIB_PATH} nor {SRC_PATH} exists"
             + (f" (HACKTV_RT_DIR={RT_DIR})" if RT_DIR else ""))
     return not (os.path.exists(LIB_PATH)
-                and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SRC_PATH))
+                and os.path.getmtime(LIB_PATH) >= max(
+                    os.path.getmtime(SRC_PATH), os.path.getmtime(PORT_SRC)))
 
 
 def build() -> bool:
@@ -97,10 +104,12 @@ def build() -> bool:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_dir)
         os.close(fd)
         try:
-            r = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SRC_PATH],
-                               capture_output=True, text=True)
+            r = subprocess.run([cxx, *CXX_FLAGS, "-I",
+                                os.path.dirname(SRC_PATH), "-o", tmp,
+                                PORT_SRC], capture_output=True, text=True)
             if r.returncode != 0:
-                raise RuntimeError(f"g++ failed on {SRC_PATH}:\n"
+                raise RuntimeError(f"g++ failed on {PORT_SRC} over "
+                                   f"{SRC_PATH}:\n"
                                    + r.stderr[-4000:])
             os.replace(tmp, LIB_PATH)
         finally:
@@ -114,9 +123,10 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(LIB_PATH)
-            _declare(lib)
+            with telemetry.span("setup.native"):
+                build()
+                lib = ctypes.CDLL(LIB_PATH)
+                _declare(lib)
             _lib = lib
         return _lib
 
@@ -164,8 +174,8 @@ def _declare(lib) -> None:
     lib.rt_file_sink_open.restype = p
     lib.rt_file_sink_open.argtypes = [c.c_char_p, c.c_int, c.c_int,
                                       c.c_size_t]
-    lib.rt_file_sink_write.restype = c.c_long
-    lib.rt_file_sink_write.argtypes = [p, p, c.c_size_t]
+    lib.rt_file_sink_write_counted.restype = c.c_long
+    lib.rt_file_sink_write_counted.argtypes = [p, p, c.c_size_t, p]
     lib.rt_file_sink_close.restype = c.c_long
     lib.rt_file_sink_close.argtypes = [p]
     lib.rt_fifo_create.restype = p
@@ -258,6 +268,7 @@ class FmCarrierExact:
         self._state = np.array([2147483647, 0, 32767], np.int64)
         self.n = 0           # absolute sample index of the state
 
+    @telemetry.spanned("fm.recur")
     def process(self, samples: np.ndarray, n0: int,
                 emit: bool = True) -> np.ndarray | None:
         """The packed int32 (i | q << 16) carrier for output samples
@@ -280,23 +291,36 @@ class FmCarrierExact:
 
 
 class NativeFileSink:
-    """Threaded file sink: the sample-format conversion and buffered write
-    run off the calling thread (rt_file_sink_*)."""
+    """Threaded file sink: the sample-format conversion and the copy into
+    its FIFO run on the calling thread, the file writes on the sink's own
+    (rt_file_sink_*)."""
+
+    # rt_file_sink_write_counted's counts, in its order
+    STATS = ("convert_ns", "queue_ns", "bytes_in", "fifo_peak_bytes")
 
     def __init__(self, path: str, dtype: str = "int16",
                  complex_out: bool = True):
         self._lib = load()
+        self._counts = np.zeros(len(self.STATS), np.int64)
         self._h = self._lib.rt_file_sink_open(
             path.encode(), TYPE_IDS[dtype], 1 if complex_out else 0,
             SINK_FIFO_BYTES)
         if not self._h:
             raise OSError(f"cannot open sink {path!r}")
 
+    @telemetry.spanned("sink.write")
     def write(self, iq: np.ndarray) -> None:
         """`iq`: int16 [n, 2] interleaved I/Q."""
         iq = np.ascontiguousarray(iq, np.int16)
-        if self._lib.rt_file_sink_write(self._h, ptr(iq), iq.size // 2) < 0:
+        if self._lib.rt_file_sink_write_counted(
+                self._h, ptr(iq), iq.size // 2, ptr(self._counts)) < 0:
             raise OSError("sink write failed")
+
+    def stats(self) -> dict:
+        """ns spent converting and writing into the FIFO, bytes handed to
+        it, and its highest level seen just after a write, over every
+        write so far."""
+        return dict(zip(self.STATS, self._counts.tolist()))
 
     def close(self) -> None:
         if self._h:

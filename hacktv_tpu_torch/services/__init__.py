@@ -8,6 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
+
 
 def arrays_to_device(arrays: dict, device) -> dict:
     """A service's host block arrays for its `apply`: numpy arrays as
@@ -15,7 +17,7 @@ def arrays_to_device(arrays: dict, device) -> dict:
     out = {}
     for k, v in arrays.items():
         if isinstance(v, np.ndarray):
-            out[k] = torch.as_tensor(np.ascontiguousarray(v), device=device)
+            out[k] = telemetry.upload(np.ascontiguousarray(v), device)
         elif isinstance(v, np.generic):
             out[k] = v.item()
         else:

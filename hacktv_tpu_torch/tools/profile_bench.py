@@ -2,12 +2,11 @@
 
     python -m hacktv_tpu_torch.tools.profile_bench [FPB] [--device cuda]
 
-Blocks are a stream (their carries chain block to block), so the host's
-arguments are built in stream order, interleaved with dispatch, and
-their share is timed inline around the calls that build them
-(`_device_rgb`, `_block_meta`, `_audio_args`), as encode_block_device
-makes them; the full time runs from the first block's host work to the
-card's end of the last block.  Prints one JSON line.
+The host's share is what the program's tracer (telemetry.py) records
+under encode_block_device's spans `dispatch.rgb`, `dispatch.meta` and
+`dispatch.audio`, the calls that build the block's arguments; the full
+time runs from the first timed block's dispatch to the card's end of the
+last block.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -17,8 +16,11 @@ import json
 import sys
 import time
 
+from .. import telemetry
 from ..bench import device_fields, wait
 from ..encoder import Encoder, resolve_device
+
+HOST_SPANS = ("dispatch.rgb", "dispatch.meta", "dispatch.audio")
 
 
 def profile(fpb: int = 32, *, device="cuda", warm: int = 5, n: int = 8):
@@ -29,21 +31,19 @@ def profile(fpb: int = 32, *, device="cuda", warm: int = 5, n: int = 8):
     enc = Encoder("i", 16_000_000, frames_per_block=fpb, device=dev)
     for b in range(warm):
         wait(enc.encode_block_device(b))
-    t_host = 0.0
-    outs = []
-    t0 = time.perf_counter()
-    for b in range(warm, warm + n):
-        th = time.perf_counter()
-        yuv = enc._device_rgb(b)
-        m = enc._block_meta(b)
-        audio = enc._audio_args(b)
-        t_host += time.perf_counter() - th
-        out, carry = enc._step(yuv, m, 0.0 if b == 0 else 1.0, audio)
-        enc._take_carry(b, carry)
-        outs.append(out)
-    wait(outs[-1])
-    t_full = (time.perf_counter() - t0) / n
-    t_host /= n
+    was_on = telemetry.enabled()
+    before = telemetry.totals()
+    telemetry.enable(True)
+    try:
+        t0 = time.perf_counter()
+        outs = [enc.encode_block_device(b) for b in range(warm, warm + n)]
+        wait(outs[-1])
+        t_full = (time.perf_counter() - t0) / n
+    finally:
+        telemetry.enable(was_on)
+    after = telemetry.totals()
+    t_host = sum(after.get(k, 0.0) - before.get(k, 0.0)
+                 for k in HOST_SPANS) / n
     sps = fpb * enc.frame_samples
     return {"metric": "PAL-I (i) full-chain host share",
             "fpb": fpb, "block_samples": sps,

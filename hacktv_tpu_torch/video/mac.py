@@ -37,7 +37,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from .. import runtime, shard
+from .. import runtime, shard, telemetry
 from ..audio.mac_audio import MacAudioEnc
 from ..config.standards import MacMode, Modulation, OutputType, VidConfig, \
     get_mode
@@ -1344,6 +1344,7 @@ class MacEncoder:
         aw = min(math.ceil(P * conf.active_width), W) & ~1
         return aw, conf.active_lines
 
+    @telemetry.spanned("setup.encoder")
     def __init__(self, mode: str | VidConfig, sample_rate: int,
                  pixel_rate: int = 0, source=None,
                  frames_per_block: int = 1,

@@ -14,6 +14,7 @@ naming it and writes no file; it refuses what it does not cover."""
 
 from __future__ import annotations
 
+import json
 import os
 import subprocess
 import sys
@@ -451,9 +452,10 @@ def test_cli_mac_raw_input_matches_jax_cli(tmp_path):
 
 
 def test_cli_verbose_version_profile(tmp_path, capsys):
-    """-v prints the JAX command line's mode report; --version names the
-    port; --profile writes a torch.profiler trace; --threads is
-    accepted."""
+    """-v prints the JAX command line's mode report and the file sink's
+    counts; --version names the port; --profile writes a torch.profiler
+    trace that names the program's spans, and the spans' record;
+    --threads is accepted."""
     argv = ["-m", "pal", "-s", "4000000", "--frames", "1", "-v",
             "--threads"]
     assert cli.main(argv + ["--device", "cpu", "--profile",
@@ -467,8 +469,16 @@ def test_cli_verbose_version_profile(tmp_path, capsys):
                                               "Sample rate")]
     assert head(err_t) == head(err_j) and len(head(err_t)) == 3
     assert "realtime" in err_t
-    assert (tmp_path / "prof" / "hacktv_tpu_torch_trace.json").stat(
-        ).st_size > 0
+    size = (tmp_path / "t.bin").stat().st_size
+    assert f"file sink: {size} bytes in; converting " in err_t
+    trace = (tmp_path / "prof" / "hacktv_tpu_torch_trace.json").read_text()
+    assert "hacktv.dispatch.audio" in trace
+    rec = json.loads((tmp_path / "prof" /
+                      "hacktv_tpu_torch_spans.json").read_text())
+    assert rec["counts"]["setup.encoder"] == 1
+    assert rec["counts"]["dispatch"] == rec["counts"]["collect"] == 1
+    assert rec["counters"]["uploads"] > 0
+    assert rec["sink"]["bytes_in"] == size
     assert cli.main(["--version"]) == 0
     assert "hacktv_tpu_torch" in capsys.readouterr().out
 

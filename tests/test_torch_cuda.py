@@ -11,7 +11,8 @@ the cuts, Eurocrypt, teletext, the resampler, the pipelined multiplex),
 moving sources in 4-frame blocks and the LUT gather, checkpoints
 written on one device and resumed on the other, and the encoders sharded
 over 2 and 4 shards of the card (`devices=`), on the card against their
-CPU path (byte for byte).  They skip without an NVIDIA card.  The file imports
+CPU path (byte for byte); the tracer's events and launch counts on the
+card.  They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -27,7 +28,7 @@ import pytest
 import torch
 
 import _torch_common as tc
-from hacktv_tpu_torch import Encoder, get_mode
+from hacktv_tpu_torch import Encoder, get_mode, telemetry
 from hacktv_tpu_torch.audio import nicam_dev, synth
 from hacktv_tpu_torch.av.noise import NoiseSource
 from hacktv_tpu_torch.mux import MuxEncoder
@@ -39,6 +40,12 @@ from hacktv_tpu_torch.video import secam
 from hacktv_tpu_torch.video.params import VideoParams
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches() -> tuple:
+    """(fir_cplx, fir_real) launches so far, the tracer's counters."""
+    c = telemetry.counters()
+    return c.get("fir_cplx.launches", 0), c.get("fir_real.launches", 0)
 
 
 @pytest.fixture
@@ -58,14 +65,51 @@ def test_kernels_equal_plain(cuda, seed, nt, n):
     gh = torch.Generator().manual_seed(seed)
     tr = torch.randn(nt, generator=gh)
     ti = torch.randn(nt, generator=gh)
-    c0, r0 = sf.fir_cplx.launches, sf.fir_real.launches
+    c0, r0 = _launches()
     yi, yq = sf.stream_fir(xs, tr, ti, n)
     y = sf.stream_fir(xs, tr, None, n)
     torch.cuda.synchronize()
-    assert (sf.fir_cplx.launches, sf.fir_real.launches) == (c0 + 1, r0 + 1)
+    assert _launches() == (c0 + 1, r0 + 1)
     pi, pq = sf.stream_fir_plain(xs, tr, ti, n)
     assert torch.equal(yi, pi) and torch.equal(yq, pq)
     assert torch.equal(y, sf.stream_fir_plain(xs, tr, None, n))
+
+
+@pytest.mark.parametrize("shards", [None, 2])
+def test_tracing_on_the_card(cuda, shards):
+    """PAL-I with the VSB filter, two-frame blocks 0-2 (whole and in two
+    shards) dispatched ahead of their collect as the command line does,
+    the tracer off and on: the same bytes; on, each block's copy back
+    waits for the work queued on its cards (collect.wait) before it
+    copies (collect.copy), and each block launches fir_cplx once a
+    shard."""
+    def run(on: bool):
+        telemetry.take()
+        telemetry.enable(on)
+        try:
+            enc = Encoder("i", 16_000_000, vfilter=True, device=cuda,
+                          frames_per_block=2,
+                          devices=None if shards is None else
+                          [cuda] * shards)
+            c0, _ = _launches()
+            pending, out = enc.encode_block_device(0), []
+            for b in range(1, 4):
+                nxt = enc.encode_block_device(b) if b < 3 else None
+                out.append(enc.collect_block(b - 1, pending))
+                pending = nxt
+            launches = _launches()[0] - c0
+        finally:
+            telemetry.enable(False)
+        return out, launches, telemetry.take()["spans"]
+    off, n_off, _ = run(False)
+    on, n_on, spans = run(True)
+    for a, b in zip(off, on, strict=True):
+        assert np.array_equal(a, b)
+    assert n_off == n_on == 3 * (shards or 1)
+    for b in range(3):
+        (w,) = [s for s in spans if s[0] == "collect.wait" and s[1] == b]
+        (c,) = [s for s in spans if s[0] == "collect.copy" and s[1] == b]
+        assert w[2] == c[2] == "collect" and w[4] <= c[3]
 
 
 @pytest.mark.parametrize("branch", ["fuse1", "fuse2"])
@@ -314,10 +358,10 @@ def test_svideo_lowpass_card_matches_cpu(cuda):
     """PAL S-Video with the low-pass: the stream FIR kernel runs twice a
     block, on Y and on C; blocks 0-2 card against CPU."""
     conf = replace(get_mode("pal"), s_video=True)
-    r0 = sf.fir_real.launches
+    c0, r0 = _launches()
     _card_vs_cpu(cuda, "pal S-Video", lambda d: Encoder(
         conf, 16_000_000, vfilter=True, device=d), 3)
-    assert sf.fir_real.launches == r0 + 6
+    assert _launches() == (c0, r0 + 6)
 
 
 @pytest.mark.parametrize("mode,rate,kw", [

@@ -1,0 +1,155 @@
+"""The port's tracer (hacktv_tpu_torch/telemetry.py) on the CPU: tracing
+leaves an encoder's samples as they are, records nothing while off, and
+while on records each block's dispatch with its five stages and its copy
+back, nested and carrying the block number; the block path's uploads
+are counted; the native file sink counts its bytes and its conversion;
+the spans reach an active torch.profiler's timeline; the raw spans kept
+are bounded."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from hacktv_tpu_torch import Encoder, runtime, telemetry
+
+BLOCKS = 3
+STAGES = {"dispatch.rgb", "dispatch.meta", "dispatch.audio", "dispatch.step",
+          "dispatch.carry"}
+
+
+@pytest.fixture(autouse=True)
+def _tracer_off():
+    telemetry.enable(False)
+    telemetry.take()
+    yield
+    telemetry.enable(False)
+    telemetry.take()
+
+
+def _run(on: bool) -> dict:
+    """BLOCKS one-frame blocks of PAL-I with the VSB filter through
+    dispatch and collect, the tracer on or off: the samples, the uploads
+    counted at each block's dispatch, and the tracer's record."""
+    telemetry.take()
+    telemetry.enable(on)
+    try:
+        enc = Encoder("i", 16_000_000, vfilter=True, device="cpu",
+                      frames_per_block=1)
+        out, uploads = [], []
+        for b in range(BLOCKS):
+            u0 = telemetry.counters().get("uploads", 0)
+            dev = enc.encode_block_device(b)
+            uploads.append(telemetry.counters().get("uploads", 0) - u0)
+            out.append(enc.collect_block(b, dev))
+    finally:
+        telemetry.enable(False)
+    return {"out": out, "uploads": uploads, "rec": telemetry.take()}
+
+
+@pytest.fixture(scope="module")
+def runs():
+    return {"off": _run(False), "on": _run(True)}
+
+
+def test_tracing_leaves_the_samples_unchanged(runs):
+    for a, b in zip(runs["off"]["out"], runs["on"]["out"], strict=True):
+        assert np.array_equal(a, b)
+
+
+def test_off_records_no_span(runs):
+    rec = runs["off"]["rec"]
+    assert rec["totals"] == {} and rec["counts"] == {}
+    assert rec["spans"] == []
+
+
+def test_each_block_dispatch_has_its_stages(runs):
+    spans = runs["on"]["rec"]["spans"]
+    for b in range(BLOCKS):
+        (d,) = [s for s in spans if s[0] == "dispatch" and s[1] == b]
+        assert d[2] is None
+        kids = [s for s in spans if s[2] == "dispatch" and s[1] == b]
+        assert {s[0] for s in kids} == STAGES and len(kids) == len(STAGES)
+        assert all(d[3] <= s[3] <= s[4] <= d[4] for s in kids)
+        assert sum(s[4] - s[3] for s in kids) <= d[4] - d[3]
+        (c,) = [s for s in spans if s[0] == "collect" and s[1] == b]
+        (cp,) = [s for s in spans if s[0] == "collect.copy" and s[1] == b]
+        assert cp[2] == "collect" and c[3] <= cp[3] <= cp[4] <= c[4]
+    rec = runs["on"]["rec"]
+    assert rec["counts"]["dispatch"] == BLOCKS
+    assert rec["counts"]["setup.encoder"] == 1
+    # NICAM and FM mono's host windows, children of dispatch.audio
+    assert {s[2] for s in spans if s[0].startswith("dispatch.audio.")} \
+        == {"dispatch.audio"}
+    assert rec["totals"]["dispatch.audio.nicam"] <= \
+        rec["totals"]["dispatch.audio"]
+
+
+def test_uploads_counted_on_each_steady_block(runs):
+    for r in runs.values():
+        steady = r["uploads"][1:]
+        assert steady[0] > 0 and len(set(steady)) == 1
+    assert runs["on"]["uploads"] == runs["off"]["uploads"]
+
+
+@pytest.mark.parametrize("dtype,complex_out", [("int16", True),
+                                               ("float", False)])
+def test_file_sink_counts_its_bytes(tmp_path, dtype, complex_out):
+    rng = np.random.default_rng(7)
+    blocks = [rng.integers(-32768, 32768, (n, 2)).astype(np.int16)
+              for n in (1000, 70_001, 3)]
+    path = tmp_path / "out.bin"
+    s = runtime.NativeFileSink(str(path), dtype, complex_out)
+    for blk in blocks:
+        s.write(blk)
+    live = s.stats()
+    s.close()
+    st = s.stats()
+    size = path.stat().st_size
+    assert size == sum(len(b) for b in blocks) * (2 if complex_out else 1) \
+        * (2 if dtype == "int16" else 4)
+    assert live == st and st["bytes_in"] == size
+    assert st["convert_ns"] > 0 and st["queue_ns"] > 0
+    assert 0 < st["fifo_peak_bytes"] <= size
+
+
+def test_span_nesting_blocks_and_counters():
+    telemetry.enable(True)
+    with telemetry.span("dispatch", 5):
+        with telemetry.span("dispatch.step"):
+            pass
+    with telemetry.span("other"):
+        pass
+    x0 = telemetry.counters().get("x", 0)
+    telemetry.count("x", 3)
+    telemetry.count("x")
+    assert telemetry.counters()["x"] == x0 + 4
+    rec = telemetry.take()
+    assert [(n, b, p) for n, b, p, _, _ in rec["spans"]] == [
+        ("dispatch.step", 5, "dispatch"), ("dispatch", 5, None),
+        ("other", None, None)]
+    # the counters only grow: take() leaves them
+    assert rec["counters"]["x"] == telemetry.counters()["x"] == x0 + 4
+    assert telemetry.take()["spans"] == []
+    telemetry.enable(False)
+    assert telemetry.span("dispatch") is telemetry.span("collect")
+
+
+def test_spans_reach_an_active_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    telemetry.enable(True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with telemetry.span("dispatch.audio"):
+            torch.zeros(4).sum()
+    assert "hacktv.dispatch.audio" in {e.name for e in prof.events()}
+
+
+def test_raw_spans_are_bounded():
+    telemetry.enable(True)
+    for _ in range(telemetry.RAW_SPANS + 10):
+        with telemetry.span("s"):
+            pass
+    rec = telemetry.take()
+    assert len(rec["spans"]) == telemetry.RAW_SPANS
+    assert rec["counts"]["s"] == telemetry.RAW_SPANS + 10

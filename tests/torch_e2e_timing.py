@@ -42,7 +42,6 @@ def main() -> int:
     import chip_smoke as cs
     from hacktv_tpu_torch import runtime
     from hacktv_tpu_torch.ops import cuda_build
-    from hacktv_tpu_torch.ops import stream_fir as sf
     cs.card()
     rt = threading.Thread(target=runtime.build)
     rt.start()
@@ -52,7 +51,7 @@ def main() -> int:
     cs.TIMED_BLOCKS = args.blocks
     print(f"[root] {root}", flush=True)
     for path in args.paths:
-        cs.e2e_phase(sf, path, None)
+        cs.e2e_phase(path, None)
     return 0
 
 
