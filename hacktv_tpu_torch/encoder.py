@@ -116,12 +116,52 @@ def resolve_device(device) -> torch.device:
 
 
 def _wait_queued(out) -> None:
-    """Wait for everything queued so far on the stream of each card that
-    holds a part of `out`: what a copy of `out` issued now would wait
-    behind."""
+    """Wait for what a copy of `out` issued now (`to_host`) waits
+    behind: the event recorded after the step that made `out`
+    (`encode_block_device`), where it has one, else everything queued so
+    far on the stream of each card that holds a part of `out`."""
+    done = getattr(out, "_step_done", None)
+    if done is not None:
+        done.synchronize()
+        return
     for t in (out if isinstance(out, shard.ShardedBlock) else (out,)):
         if t.device.type == "cuda":
             torch.cuda.current_stream(t.device).synchronize()
+
+
+def to_host(out) -> np.ndarray:
+    """A block's device output as a host array that owns its memory.
+
+    A card's tensor is copied into page-locked memory from torch's
+    caching host allocator, on a copy stream beside the compute stream.
+    The copy waits only on the event recorded after the step that made
+    `out` (`_step_done`), so not on blocks queued after it; without one
+    (a block the encoder did not make), on everything queued so far on
+    the card's stream.  The call returns once the copy has ended and
+    counts it ("collect.pinned", "collect.pinned_bytes").  The array
+    holds its page-locked block, which the allocator reuses only after
+    the array is gone.  A CPU tensor's memory is returned as it is, and a
+    sharded block is joined by `ShardedBlock.host`."""
+    if isinstance(out, shard.ShardedBlock):
+        return out.host()
+    if out.device.type != "cuda":
+        return out.cpu().numpy()
+    copy = torch.cuda.Stream(out.device)      # from torch's stream pool
+    done = getattr(out, "_step_done", None)
+    if done is None:
+        copy.wait_stream(torch.cuda.current_stream(out.device))
+    else:
+        copy.wait_event(done)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    with torch.cuda.stream(copy):
+        host.copy_(out, non_blocking=True)
+    # the caching allocator hands out's memory to later work only once
+    # the copy has read it
+    out.record_stream(copy)
+    copy.synchronize()
+    telemetry.count("collect.pinned")
+    telemetry.count("collect.pinned_bytes", host.nbytes)
+    return host.numpy()
 
 
 class Encoder:
@@ -1142,8 +1182,10 @@ class Encoder:
         device tensor: int16 [nlines, W] for real output modes, or int16
         [nlines, W, 2] (I, Q) for complex/audio modes.  A sharded encoder
         returns the shards' tensors in line order (shard.ShardedBlock),
-        each on its device.  With the tracer on (telemetry.py) each stage
-        is a span."""
+        each on its device.  A card's tensor carries the event recorded
+        after its step (`_step_done`), which its copy back (`to_host`)
+        waits on.  With the tracer on (telemetry.py) each stage is a
+        span."""
         span = telemetry.span
         with span("dispatch", block_no):
             with span("dispatch.rgb"):
@@ -1156,6 +1198,11 @@ class Encoder:
                 audio = self._audio_args(block_no)
             with span("dispatch.step"):
                 out, carry = step(yuv, m, first, audio)
+                if isinstance(out, torch.Tensor) and out.is_cuda:
+                    # what the block's copy back waits on (to_host)
+                    out._step_done = torch.cuda.Event()
+                    out._step_done.record(
+                        torch.cuda.current_stream(out.device))
             with span("dispatch.carry"):
                 self._take_carry(block_no, carry)
         return out
@@ -1273,20 +1320,30 @@ class Encoder:
     def collect_block(self, block_no: int, dev: torch.Tensor) -> np.ndarray:
         """Device tensor -> host int16 samples.  Splitting dispatch
         (encode_block_device) from collection lets a caller overlap the
-        copy of block b with the device compute of block b+1.  For FM
-        video on the host, the FM recurrence runs here over the
+        copy of block b with the device compute of block b+1.
+
+        On a card the block is copied (`to_host`) into page-locked
+        memory from torch's caching host allocator, on a copy stream
+        that waits only on the event recorded after block b's step, so
+        not on block b+1's kernels queued behind it; it returns when
+        that copy has ended.  The returned array owns its memory: a
+        caller may keep it for as long as it likes, and later blocks
+        never overwrite it.  A CPU tensor is returned without a copy; a
+        sharded block is joined by `ShardedBlock.host`.
+
+        For FM video on the host, the FM recurrence runs here over the
         composite (the I channel), so blocks must be collected in
-        order.  With the tracer on, it first waits for the work queued
-        on the block's cards (`collect.wait`), so that `collect.copy`
-        holds the copy alone."""
+        order.  With the tracer on, it first waits for what the copy
+        waits behind (`collect.wait`: block b's step, or all the work
+        queued on the block's cards where it has no step event), so that
+        `collect.copy` holds the copy alone."""
         span = telemetry.span
         with span("collect", block_no):
             if telemetry.enabled():
                 with span("collect.wait"):
                     _wait_queued(dev)
             with span("collect.copy"):
-                a = (dev.host() if isinstance(dev, shard.ShardedBlock)
-                     else dev.cpu().numpy())
+                a = to_host(dev)
             if self.fm_video_exact is not None:
                 with span("collect.fm_video"):
                     return self._fm_video_host(block_no, a)

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .encoder import to_host
 from .shard import ShardedBlock
 
 
@@ -69,8 +70,7 @@ class MuxEncoder:
         return _sum_wrap(outs)
 
     def collect_block(self, block_no: int, dev) -> np.ndarray:
-        a = (dev.host() if isinstance(dev, ShardedBlock)
-             else dev.cpu().numpy())
+        a = to_host(dev)
         if a.ndim == 3:
             return a.reshape(-1, 2)
         return a.reshape(-1)

@@ -41,6 +41,7 @@ from .. import runtime, shard, telemetry
 from ..audio.mac_audio import MacAudioEnc
 from ..config.standards import MacMode, Modulation, OutputType, VidConfig, \
     get_mode
+from ..encoder import to_host
 from ..ops import mac_bits as mb
 from ..ops import resampler
 from ..ops.shapes import rrc
@@ -2090,8 +2091,7 @@ class MacEncoder:
                                   self.encode_block_device(block_no))
 
     def collect_block(self, block_no: int, dev) -> np.ndarray:
-        a = (dev.host() if isinstance(dev, shard.ShardedBlock)
-             else dev.cpu().numpy())
+        a = to_host(dev)
         if a.ndim == 3:
             return a.reshape(-1, 2)
         return a.reshape(-1)

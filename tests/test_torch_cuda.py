@@ -80,9 +80,9 @@ def test_tracing_on_the_card(cuda, shards):
     """PAL-I with the VSB filter, two-frame blocks 0-2 (whole and in two
     shards) dispatched ahead of their collect as the command line does,
     the tracer off and on: the same bytes; on, each block's copy back
-    waits for the work queued on its cards (collect.wait) before it
-    copies (collect.copy), and each block launches fir_cplx once a
-    shard."""
+    waits for what the copy waits behind (collect.wait: the block's
+    step, or the work queued on its cards) before it copies
+    (collect.copy), and each block launches fir_cplx once a shard."""
     def run(on: bool):
         telemetry.take()
         telemetry.enable(on)
@@ -110,6 +110,35 @@ def test_tracing_on_the_card(cuda, shards):
         (w,) = [s for s in spans if s[0] == "collect.wait" and s[1] == b]
         (c,) = [s for s in spans if s[0] == "collect.copy" and s[1] == b]
         assert w[2] == c[2] == "collect" and w[4] <= c[3]
+
+
+def test_pinned_copy_back_keeps_every_block(cuda):
+    """Six 16-frame PAL-I blocks with the VSB filter streamed as the
+    command line does (block b + 1 dispatched before block b is
+    collected), every returned array kept: each equals the CPU encoder's
+    block byte for byte and is unchanged after the later blocks were
+    collected, and each went back through page-locked memory once."""
+    nblocks = 6
+    g, c = (Encoder("i", 16_000_000, vfilter=True, frames_per_block=16,
+                    device=d) for d in (cuda, "cpu"))
+    n0 = telemetry.counters()
+    kept, copies = [], []
+    pending = g.encode_block_device(0)
+    for b in range(1, nblocks + 1):
+        nxt = g.encode_block_device(b) if b < nblocks else None
+        kept.append(g.collect_block(b - 1, pending))
+        copies.append(kept[-1].copy())
+        pending = nxt
+    n1 = telemetry.counters()
+    assert n1["collect.pinned"] - n0.get("collect.pinned", 0) == nblocks
+    assert n1["collect.pinned_bytes"] - n0.get("collect.pinned_bytes", 0) \
+        == sum(a.nbytes for a in kept)
+    # a later block overwriting an earlier one's memory would show
+    assert not np.array_equal(kept[0], kept[1])
+    for b, (a, cp) in enumerate(zip(kept, copies, strict=True)):
+        assert np.array_equal(a, cp), f"block {b} changed after its collect"
+        want = c.encode_block(b)
+        assert a.dtype == want.dtype and a.tobytes() == want.tobytes(), b
 
 
 @pytest.mark.parametrize("branch", ["fuse1", "fuse2"])

@@ -93,6 +93,22 @@ def test_uploads_counted_on_each_steady_block(runs):
     assert runs["on"]["uploads"] == runs["off"]["uploads"]
 
 
+def test_cpu_collect_copies_nothing():
+    """On the CPU, collect_block returns the step's own memory reshaped,
+    with no step event and no copy through page-locked memory."""
+    enc = Encoder("i", 16_000_000, vfilter=True, device="cpu",
+                  frames_per_block=1)
+    before = telemetry.counters()
+    dev = enc.encode_block_device(0)
+    out = enc.collect_block(0, dev)
+    assert not hasattr(dev, "_step_done")
+    assert np.shares_memory(out, dev.numpy())
+    assert np.array_equal(out, dev.numpy().reshape(-1, 2))
+    after = telemetry.counters()
+    for name in ("collect.pinned", "collect.pinned_bytes"):
+        assert after.get(name, 0) == before.get(name, 0)
+
+
 @pytest.mark.parametrize("dtype,complex_out", [("int16", True),
                                                ("float", False)])
 def test_file_sink_counts_its_bytes(tmp_path, dtype, complex_out):
