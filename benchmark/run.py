@@ -3,15 +3,17 @@
     python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
         --trace <0|1>
 
-Builds the cell's encoder and source, warms up, streams blocks through the
-CLI's block loop into the native sink (writing to the null device) for
-`--seconds` seconds, checks blocks of the window against the plain
-reference, and prints one JSON line.  With --trace 0 it reports the cell's
-end-to-end metrics (over the window); with --trace 1 the per-layer
-metrics: the host-clock spans over a window of `--seconds`, then a few
-blocks under torch's sync debug mode, then a profiled stretch.  The cells,
-their configurations, traffic mixes and metrics are in BENCHMARK.json and
-the files it names.
+Builds the cell's encoder as the CLI would from its configuration (mode,
+sample rate, filter and the deployment's switches) and its source from
+the traffic mix, warms up, streams blocks through the CLI's block loop
+into the native sink (writing to the null device) for `--seconds`
+seconds, checks blocks of the window against the plain reference that
+the configuration names, and prints one JSON line.  With --trace 0 it
+reports the cell's end-to-end metrics (over the window); with --trace 1
+the per-layer metrics: the host-clock spans over a window of
+`--seconds`, then a few blocks under torch's sync debug mode, then a
+profiled stretch.  The cells, their configurations, traffic mixes and
+metrics are in BENCHMARK.json and the files it names.
 """
 
 import time
@@ -29,6 +31,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "hacktv_tpu")
 # the profiled stretch: at least this many blocks and seconds
 PROFILE_BLOCKS, PROFILE_SECONDS = 6, 2.0
 SYNC_BLOCKS = 4
+# the plain reference of a configuration that names none
+DEFAULT_REFERENCE = "codec.make"
 # the serial host recurrences the check follows, by the encoder's
 # attribute that holds each and the call that advances it; a cell follows
 # those its encoder has
@@ -52,37 +56,49 @@ def forbidden_modules() -> list:
 
 
 def build(config: dict, mix: dict, seed: int, device):
-    """The program's encoder and source for a cell."""
+    """The program's encoder and source for a cell, built as the CLI
+    builds them: its parser given the configuration's switches
+    (harness/program.py), its overrides and service checks, and its MAC
+    or raster encoder; the source is the traffic mix's, at the mode's
+    active geometry, and the blocks the mix's."""
+    import torch
+    from hacktv_tpu_torch import cli
     from hacktv_tpu_torch.av.testcard import test_card_rgb
-    from hacktv_tpu_torch.encoder import Encoder
-    from hacktv_tpu_torch.video.params import VideoParams
     from hacktv_tpu_torch.config.standards import get_mode
+    from harness.program import cli_args
     from harness.sources import make_source
-    p = VideoParams.create(get_mode(config["mode"]), config["sample_rate"],
-                           0)
-    src = make_source(mix, seed, p.active_width, p.conf.active_lines,
-                      test_card_rgb)
-    enc = Encoder(config["mode"], config["sample_rate"], source=src,
-                  frames_per_block=mix["frames_per_block"],
-                  vfilter=config["vfilter"], device=device)
+    args = cli_args(config, torch.device(device).type)
+    conf = cli._apply_overrides(get_mode(args.mode), args)
+    cli._check_services(args, conf)
+    rate, pixel_rate = int(args.samplerate), int(args.pixelrate)
+    if conf.mac_mode is not None:
+        from hacktv_tpu_torch.video.mac import MacEncoder
+        width, _ = MacEncoder.active_geometry(conf, rate, pixel_rate)
+        make = cli._mac_encoder
+    else:
+        from hacktv_tpu_torch.video.params import VideoParams
+        width = VideoParams.create(conf, rate, pixel_rate).active_width
+        make = cli._encoder
+    src = make_source(mix, seed, width, conf.active_lines, test_card_rgb)
+    enc = make(args, conf, rate, pixel_rate, mix["frames_per_block"], src)
     return enc, src
 
 
+def reference_module(config: dict):
+    """The module under reference/ that configuration `config` names
+    under `reference` (reference/codec/make.py where it names none)."""
+    import importlib
+    return importlib.import_module(
+        "reference." + config.get("reference", DEFAULT_REFERENCE))
+
+
 def reference(config: dict, mix: dict, seed: int, device, fir_dtype=None):
-    """The plain reference's encoder for a cell, with its own source."""
-    from reference.codec.av.testcard import test_card_rgb
-    from reference.codec.encoder import Encoder
-    from reference.codec.video.params import VideoParams
-    from reference.codec.config.standards import get_mode
-    from harness.sources import make_source
-    p = VideoParams.create(get_mode(config["mode"]), config["sample_rate"],
-                           0)
-    src = make_source(mix, seed, p.active_width, p.conf.active_lines,
-                      test_card_rgb)
-    return Encoder(config["mode"], config["sample_rate"], source=src,
-                   frames_per_block=mix["frames_per_block"],
-                   vfilter=config["vfilter"], device=device,
-                   fir_dtype=fir_dtype)
+    """The plain reference's encoder for a cell, with its own source:
+    the `make` of the configuration's reference module, given the
+    configuration as it stands (switches and all).  `fir_dtype` computes
+    the reference's stream FIR in a lower precision (the control)."""
+    return reference_module(config).make(config, mix, seed, device,
+                                         fir_dtype=fir_dtype)
 
 
 def run_cell(c: dict, seed: int, seconds: float, trace: bool,
@@ -201,11 +217,15 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool,
 
 def _fir_shape(enc) -> dict | None:
     """The stream FIR's shape on this encoder's path: outputs per launch,
-    taps and channels."""
-    if enc.vf_taps is None:
+    taps and channels; None where the encoder has no stream FIR (the
+    MAC encoder, the mux)."""
+    taps = getattr(enc, "vf_taps", None)
+    params = getattr(enc, "params", None)
+    out_params = getattr(enc, "out_params", None)
+    if taps is None or params is None or out_params is None:
         return None
-    taps_r, taps_i = enc.vf_taps
-    n = enc.frames_per_block * enc.params.lines * enc.out_params.width
+    taps_r, taps_i = taps
+    n = enc.frames_per_block * params.lines * out_params.width
     return {"n": n, "taps": int(taps_r.shape[0]),
             "nout": 1 if taps_i is None else 2}
 

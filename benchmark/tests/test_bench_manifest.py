@@ -8,13 +8,16 @@ import re
 import pytest
 
 import bench_common  # noqa: F401  (sys.path)
+import run
 from harness.manifest import (HERE, ROOT, cell, kept_cell, load_manifest,
                               reader)
+from harness.program import cli_args
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 MAN = load_manifest()
 CELLS = [w["name"] for w in MAN["workloads"]]
+CONFIG_FILES = sorted(os.listdir(os.path.join(HERE, "configs")))
 # configurations kept in configs/ that no listed cell runs (PERF.md §7)
 KEPT = sorted(f[:-len(".json")]
               for f in os.listdir(os.path.join(HERE, "configs"))
@@ -88,3 +91,18 @@ def test_kept_configs_found_by_name():
                                                         "setup_s"]
         with pytest.raises(SystemExit):
             cell(MAN, c["workload"]["name"])
+
+
+@pytest.mark.parametrize("file", CONFIG_FILES)
+def test_config_switches_and_reference(file):
+    # `switches` parse with the CLI's parser and none is refused;
+    # `reference` names a module under reference/ with `make` (without
+    # either key: no switch, and the codec reference)
+    with open(os.path.join(HERE, "configs", file)) as f:
+        config = json.load(f)
+    switches = config.get("switches", [])
+    assert isinstance(switches, list)
+    assert all(isinstance(s, str) for s in switches)
+    args = cli_args(config, "cuda")
+    assert args.mode == config["mode"]
+    assert callable(run.reference_module(config).make)

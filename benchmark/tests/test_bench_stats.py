@@ -69,6 +69,8 @@ def test_readers():
     # a kernel off the path, or the other kind of filter: silent
     assert reader("fir_real_roofline_pct")(ctx) is None
     assert reader("fir_cplx_roofline_pct")(_ctx({"x": [1.0, 1]})) is None
+    # an encoder without a stream FIR (MAC, mux): no shape, silent
+    assert reader("fir_cplx_roofline_pct")(dict(ctx, fir=None)) is None
 
 
 def test_trace_reduction():
