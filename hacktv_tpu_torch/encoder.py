@@ -60,6 +60,7 @@ import copy
 import math
 import pickle
 import sys
+import time
 from collections import OrderedDict
 from dataclasses import replace
 
@@ -785,20 +786,31 @@ class Encoder:
             if self.conf.s_video:
                 block, cblock = block
         if self.secam is not None:
-            sa = audio["secam"]
-            sm = sa["meta"] if whole else secam_mod.window_meta(
-                sa["meta"], sa["host"], r0, r1, win.b)
-            if self.secam_device:
-                add, carry["secam_z"] = secam_mod.device_chroma_carrier(
-                    self.secam, sm, yuv[1], yuv[2], hand["secam_z"])
-            else:
-                add = rows(sa["add"]).to(torch.float32)
-            if cblock is not None:
-                # no luma band-reject; the carrier rides the C channel
-                # (src/video.c:3206, 3219)
-                cblock = cblock + add
-            else:
-                block = secam_mod.render(self.secam, block, add, sm)
+            # counted always (secam.step_ns, secam.windows), a span while
+            # tracing
+            t_secam = time.perf_counter_ns()
+            with telemetry.span("dispatch.step.secam"):
+                sa = audio["secam"]
+                sm = sa["meta"] if whole else secam_mod.window_meta(
+                    sa["meta"], sa["host"], r0, r1, win.b)
+                if self.secam_device:
+                    with telemetry.span("dispatch.step.secam.chroma"):
+                        add, carry["secam_z"] = \
+                            secam_mod.device_chroma_carrier(
+                                self.secam, sm, yuv[1], yuv[2],
+                                hand["secam_z"])
+                else:
+                    add = rows(sa["add"]).to(torch.float32)
+                if cblock is not None:
+                    # no luma band-reject; the carrier rides the C channel
+                    # (src/video.c:3206, 3219)
+                    cblock = cblock + add
+                else:
+                    with telemetry.span("dispatch.step.secam.render"):
+                        block = secam_mod.render(self.secam, block, add, sm)
+            telemetry.count("secam.step_ns",
+                            time.perf_counter_ns() - t_secam)
+            telemetry.count("secam.windows")
         if self.services:
             # the line's colour carrier for VITS's chroma part: the exact
             # LUT rows, the angle addition, or none (no colour carrier)
@@ -997,9 +1009,10 @@ class Encoder:
                 d[k] = t(d[k])
         return d
 
-    def _audio_args(self, block_no: int) -> dict:
+    def _audio_args(self, block_no: int, secam: dict | None = None) -> dict:
         """Host audio-rate computation -> per-block arguments (host ints
-        and numpy offsets; the PCM window and tables as tensors)."""
+        and numpy offsets; the PCM window and tables as tensors).  `secam`
+        is the block's `_secam_args` where the caller has built them."""
         nlines = self.frames_per_block * self.params.lines
         k0 = block_no * nlines
         # With the video filter enabled the audio process consumes the
@@ -1045,10 +1058,11 @@ class Encoder:
                 k: up(v, dev)
                 for k, v in self.audio.pilot_block(a_k0, nlines).items()}
         if self.am_statics is not None:
-            args["am_mono"] = {
-                k: up(np.ascontiguousarray(v), dev)
-                for k, v in self.audio.am_block(self.audio.am_mono, a_k0,
-                                                nlines).items()}
+            with telemetry.span("dispatch.audio.am"):
+                args["am_mono"] = {
+                    k: up(np.ascontiguousarray(v), dev)
+                    for k, v in self.audio.am_block(
+                        self.audio.am_mono, a_k0, nlines).items()}
         if self.nicam_statics is not None:
             with telemetry.span("dispatch.audio.nicam"):
                 nc = self.audio.nicam_device_block(
@@ -1071,7 +1085,8 @@ class Encoder:
                     f"(no phase carry for block {block_no})")
             args["fm_r0"] = self._fm_r[block_no]
         if self.secam is not None:
-            args["secam"] = self._secam_args(block_no)
+            args["secam"] = (self._secam_args(block_no) if secam is None
+                             else secam)
         if self.offset_statics is not None:
             c0, s0, nz = rf_ops.offset_rotation(
                 self.conf.offset, self.params.sample_rate, k0,
@@ -1129,13 +1144,15 @@ class Encoder:
         out = fx.process(self.audio.fm_exact_stream(c, n0, n1), n0)
         return out.view(np.int16).reshape(nlines, W, 2)
 
+    @telemetry.spanned("dispatch.meta.secam")
     def _secam_args(self, block_no: int) -> dict:
         """The block's SECAM metadata on the device ("meta"), and the IIR
         carry ("z0") of the device program or the host-exact carrier
         add-in ("add").  The per-line metadata is periodic in the stream
         line with period 6 frames (dr parity: 2, carrier phase sign: 3);
         block 0 is special (clamped pre-stream rows).  Building a new key
-        is a Python loop over the block's lines."""
+        is a Python loop over the block's lines (counted in
+        secam.meta_builds)."""
         nlines = self.frames_per_block * self.params.lines
         k0 = block_no * nlines
         key = k0 % (6 * self.conf.lines) if k0 > 0 else -1
@@ -1143,6 +1160,7 @@ class Encoder:
         if hit is not None:
             self._secam_meta_cache.move_to_end(key)
         else:
+            telemetry.count("secam.meta_builds")
             nm = secam_mod.block_meta(
                 self.params, k0 - 1, nlines + 1 + self.halo_after, nlines,
                 self.vframe_y, self.source.height)
@@ -1192,10 +1210,12 @@ class Encoder:
                 yuv = self._device_rgb(block_no)
             with span("dispatch.meta"):
                 m = self._block_meta(block_no)
+                secam = (self._secam_args(block_no)
+                         if self.secam is not None else None)
             first = 0.0 if block_no == 0 else 1.0
             step = self._step if self._plan is None else self._step_sharded
             with span("dispatch.audio"):
-                audio = self._audio_args(block_no)
+                audio = self._audio_args(block_no, secam)
             with span("dispatch.step"):
                 out, carry = step(yuv, m, first, audio)
                 if isinstance(out, torch.Tensor) and out.is_cuda:

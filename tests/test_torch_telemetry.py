@@ -2,9 +2,11 @@
 leaves an encoder's samples as they are, records nothing while off, and
 while on records each block's dispatch with its five stages and its copy
 back, nested and carrying the block number; the block path's uploads
-are counted; the native file sink counts its bytes and its conversion;
-the spans reach an active torch.profiler's timeline; the raw spans kept
-are bounded."""
+are counted; SECAM-L's chroma program, its metadata and its AM sound are
+spans of their stages, and SECAM's counters count its blocks, its time
+and its metadata builds (PAL-I leaves them); the native file sink counts
+its bytes and its conversion; the spans reach an active torch.profiler's
+timeline; the raw spans kept are bounded."""
 
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ def _run(on: bool) -> dict:
         enc = Encoder("i", 16_000_000, vfilter=True, device="cpu",
                       frames_per_block=1)
         out, uploads = [], []
+        c0 = telemetry.counters()
         for b in range(BLOCKS):
             u0 = telemetry.counters().get("uploads", 0)
             dev = enc.encode_block_device(b)
@@ -45,7 +48,8 @@ def _run(on: bool) -> dict:
             out.append(enc.collect_block(b, dev))
     finally:
         telemetry.enable(False)
-    return {"out": out, "uploads": uploads, "rec": telemetry.take()}
+    return {"out": out, "uploads": uploads, "rec": telemetry.take(),
+            "counters": (c0, telemetry.counters())}
 
 
 @pytest.fixture(scope="module")
@@ -169,3 +173,78 @@ def test_raw_spans_are_bounded():
     rec = telemetry.take()
     assert len(rec["spans"]) == telemetry.RAW_SPANS
     assert rec["counts"]["s"] == telemetry.RAW_SPANS + 10
+
+
+# SECAM-L at one frame a block: the metadata's period is 6 frames, so
+# blocks 0-6 build it and block 7 finds it cached
+SECAM_BLOCKS = 8
+SECAM_COUNTERS = ("secam.step_ns", "secam.windows", "secam.meta_builds")
+
+
+def _run_secam(on: bool) -> dict:
+    """SECAM_BLOCKS one-frame blocks of SECAM-L with the VSB filter (the
+    device chroma program, AM sound and NICAM), the tracer on or off: the
+    samples, SECAM's counters after each block, and the record."""
+    telemetry.take()
+    telemetry.enable(on)
+    try:
+        enc = Encoder("l", 16_000_000, vfilter=True, device="cpu",
+                      frames_per_block=1)
+        assert enc.secam_device
+        out, counts = [], [telemetry.counters()]
+        for b in range(SECAM_BLOCKS):
+            out.append(enc.collect_block(b, enc.encode_block_device(b)))
+            counts.append(telemetry.counters())
+    finally:
+        telemetry.enable(False)
+    return {"out": out, "counts": counts, "rec": telemetry.take()}
+
+
+@pytest.fixture(scope="module")
+def secam_runs():
+    return {"off": _run_secam(False), "on": _run_secam(True)}
+
+
+def test_secam_tracing_leaves_the_samples_unchanged(secam_runs):
+    for a, b in zip(secam_runs["off"]["out"], secam_runs["on"]["out"],
+                    strict=True):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name,parent", [
+    ("dispatch.step.secam", "dispatch.step"),
+    ("dispatch.step.secam.chroma", "dispatch.step.secam"),
+    ("dispatch.step.secam.render", "dispatch.step.secam"),
+    ("dispatch.meta.secam", "dispatch.meta"),
+    ("dispatch.audio.am", "dispatch.audio")])
+def test_secam_spans_nest_once_a_block(secam_runs, name, parent):
+    spans = secam_runs["on"]["rec"]["spans"]
+    for b in range(SECAM_BLOCKS):
+        (s,) = [s for s in spans if s[0] == name and s[1] == b]
+        (p,) = [p for p in spans if p[0] == parent and p[1] == b]
+        assert s[2] == parent and p[3] <= s[3] <= s[4] <= p[4]
+    assert secam_runs["off"]["rec"]["spans"] == []
+
+
+def test_secam_counters_count_each_block(secam_runs):
+    for r in secam_runs.values():
+        c = r["counts"]
+        for b in range(SECAM_BLOCKS):
+            assert (c[b + 1].get("secam.windows", 0)
+                    - c[b].get("secam.windows", 0)) == 1
+            assert c[b + 1]["secam.step_ns"] > c[b].get("secam.step_ns", 0)
+
+
+def test_secam_meta_builds_stop_once_the_period_is_cached(secam_runs):
+    for r in secam_runs.values():
+        builds = [r["counts"][b + 1].get("secam.meta_builds", 0)
+                  - r["counts"][b].get("secam.meta_builds", 0)
+                  for b in range(SECAM_BLOCKS)]
+        assert builds == [1] * 7 + [0]
+
+
+def test_pal_i_leaves_the_secam_counters(runs):
+    for r in runs.values():
+        c0, c1 = r["counters"]
+        for name in SECAM_COUNTERS:
+            assert c1.get(name, 0) == c0.get(name, 0)
