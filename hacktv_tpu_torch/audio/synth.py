@@ -688,6 +688,18 @@ def make_nicam_statics(taps: np.ndarray, num: int, den: int, width: int,
         pulse_lo=t(split[1]) if split else None)
 
 
+def window_starts(st: NicamStatics, offq: np.ndarray, offr: np.ndarray,
+                  L: int, block_lines: int) -> np.ndarray:
+    """nicam_add's window start of each line class (int64 [P]) in a block
+    of `block_lines` lines, into sign streams of L symbols: clamped into
+    range, as the reference's dynamic_slice clamps them."""
+    spp, S = st.syms_per_period, st.nslot
+    rows, cols = L // spp - 1, spp + S
+    G = -(-block_lines // st.period)
+    return (np.clip(offq, 0, rows - G).astype(np.int64) * spp
+            + np.clip(offr, 0, cols - S))
+
+
 def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
               signs_i: torch.Tensor,   # f32 [L] per-symbol I signs (padded)
               signs_q: torch.Tensor,   # f32 [L] per-symbol Q signs
@@ -697,6 +709,7 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
               k0_mod: int,             # first line's class offset
               line0: int = 0,          # the first line's index in its block
               block_lines: int | None = None,   # the block's lines
+              starts: torch.Tensor | None = None,   # i64 [P] (window_starts)
               ):
     """Add the NICAM DQPSK burst to the (I, Q) block [B, W].
 
@@ -713,7 +726,11 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
     With `line0`, out_i and out_q are the lines [line0, line0 + B) of a
     block of `block_lines` lines (one shard of it): the window starts are
     the block's, clamped as for the whole block, and each class of the
-    shard reads its windows from the block line it starts at."""
+    shard reads its windows from the block line it starts at.
+
+    `starts` are a whole block's window starts (`window_starts`) already
+    on the device, so that the step uploads nothing (a replayed CUDA graph
+    cannot); without them they are uploaded here."""
     B, W = out_i.shape
     P, S = st.period, st.nslot
     spp = st.syms_per_period
@@ -727,17 +744,18 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
         g = np.arange(G, dtype=np.int64)[:, None] * spp + np.arange(S)
         grid = st._cache[key] = torch.as_tensor(np.stack([g, g + L]),
                                                 device=dev)
-    rows, cols = L // spp - 1, spp + S
-    G_blk = G if block_lines is None else -(-block_lines // P)
-    start = (np.clip(offq, 0, rows - G_blk).astype(np.int64) * spp
-             + np.clip(offr, 0, cols - S))
+    if starts is None:
+        start = window_starts(st, offq, offr, L,
+                              B if block_lines is None else block_lines)
+        if line0:
+            # the shard's class c' is the block's class (c' + line0) mod
+            # P, its window g' the block's window g' + (c' + line0) // P
+            c = np.arange(P, dtype=np.int64) + line0
+            start = start[c % P] + (c // P) * spp
+        starts = telemetry.upload(start, dev)
     if line0:
-        # the shard's class c' is the block's class (c' + line0) mod P,
-        # its window g' the block's window g' + (c' + line0) // P
-        c = np.arange(P, dtype=np.int64) + line0
-        start = start[c % P] + (c // P) * spp
         k0_mod = (k0_mod + line0) % P
-    idx = telemetry.upload(start, dev)[:, None, None, None] + grid
+    idx = starts[:, None, None, None] + grid
     if line0:
         # the windows of lines past the block read nothing it keeps
         idx = idx.clamp_(max=2 * L - 1)

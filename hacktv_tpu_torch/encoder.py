@@ -69,6 +69,7 @@ import torch
 
 from . import runtime
 from . import shard
+from . import step_graph
 from . import telemetry
 from .audio import nicam as nicam_mod
 from .audio import nicam_dev
@@ -487,6 +488,11 @@ class Encoder:
             self._windows = self._plan.windows(
                 self._rows, 2 + (2 if self.resampler is not None else 0),
                 self.halo_after)
+        # an unsharded step on a card replays as a CUDA graph wherever
+        # its host inputs repeat (step_graph.py)
+        self._graphs = (step_graph.StepGraphs(self.device)
+                        if self.device.type == "cuda" and self._plan is None
+                        else None)
 
     def _init_audio(self, a2stereo: bool, systeraudio: bool):
         """Audio subcarriers (FM mono, the A2 second carrier and pilot,
@@ -730,6 +736,17 @@ class Encoder:
                                      self._hand_in(audio))
         return out, {**blk.carry, **carry}
 
+    def _graphed_step(self, yuv, m: dict, first: float, audio: dict):
+        """`_step` through the encoder's CUDA graphs (step_graph.py).
+        The whole block's step reads SECAM's metadata on the device alone:
+        its host copy, which serves a shard's window, is left out of the
+        step's arguments and so of their key."""
+        if "secam" in audio:
+            audio = {**audio, "secam": {k: v for k, v in
+                                        audio["secam"].items()
+                                        if k != "host"}}
+        return self._graphs(self._step, yuv, m, first, audio)
+
     def _hand_in(self, audio: dict) -> dict:
         """The block's serial carries into its first row stage: the SECAM
         IIR's z and the FM-video phase sum (device scalars)."""
@@ -900,13 +917,15 @@ class Encoder:
             out_i, out_q = audio_synth.nicam_add(
                 self.nicam_statics, out_i, out_q, signs_i, signs_q,
                 nc["offq"], nc["offr"], lines(nc["cc_off"]),
-                audio["nicam_k0mod"], line0=a, block_lines=nlines)
+                audio["nicam_k0mod"], line0=a, block_lines=nlines,
+                starts=nc["starts"] if whole else None)
         if self.dance_statics is not None:
             dc = audio["dance"]
             out_i, out_q = audio_synth.nicam_add(
                 self.dance_statics, out_i, out_q, dc["signs_i"],
                 dc["signs_q"], dc["offq"], dc["offr"], lines(dc["cc_off"]),
-                audio["dance_k0mod"], line0=a, block_lines=nlines)
+                audio["dance_k0mod"], line0=a, block_lines=nlines,
+                starts=dc["starts"] if whole else None)
 
         if self.fm_video_statics is not None:
             tri = None
@@ -1068,12 +1087,18 @@ class Encoder:
                 nc = self.audio.nicam_device_block(
                     a_k0, nlines, self.nicam_statics, self.nicam_dev_statics,
                     self._nicam_dev_fn)
+                nc["starts"] = up(audio_synth.window_starts(
+                    self.nicam_statics, nc["offq"], nc["offr"],
+                    self.nicam_dev_statics.L, nlines), dev)
                 for k in ("pcm", "cc_off"):
                     nc[k] = up(nc[k], dev)
             args["nicam"] = nc
             args["nicam_k0mod"] = a_k0 % self.nicam_statics.period
         if self.dance_statics is not None:
             dc = self.audio.dance_block(a_k0, nlines, self.dance_statics)
+            dc["starts"] = up(audio_synth.window_starts(
+                self.dance_statics, dc["offq"], dc["offr"],
+                len(dc["signs_i"]), nlines), dev)
             for k in ("signs_i", "signs_q", "cc_off"):
                 dc[k] = up(dc[k], dev)
             args["dance"] = dc
@@ -1200,10 +1225,11 @@ class Encoder:
         device tensor: int16 [nlines, W] for real output modes, or int16
         [nlines, W, 2] (I, Q) for complex/audio modes.  A sharded encoder
         returns the shards' tensors in line order (shard.ShardedBlock),
-        each on its device.  A card's tensor carries the event recorded
-        after its step (`_step_done`), which its copy back (`to_host`)
-        waits on.  With the tracer on (telemetry.py) each stage is a
-        span."""
+        each on its device.  On a single card the step replays as a CUDA
+        graph where its host inputs repeat (`_graphed_step`).  A card's
+        tensor carries the event recorded after its step (`_step_done`),
+        which its copy back (`to_host`) waits on.  With the tracer on
+        (telemetry.py) each stage is a span."""
         span = telemetry.span
         with span("dispatch", block_no):
             with span("dispatch.rgb"):
@@ -1213,7 +1239,9 @@ class Encoder:
                 secam = (self._secam_args(block_no)
                          if self.secam is not None else None)
             first = 0.0 if block_no == 0 else 1.0
-            step = self._step if self._plan is None else self._step_sharded
+            step = (self._step_sharded if self._plan is not None
+                    else self._step if self._graphs is None
+                    else self._graphed_step)
             with span("dispatch.audio"):
                 audio = self._audio_args(block_no, secam)
             with span("dispatch.step"):

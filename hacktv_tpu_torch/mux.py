@@ -46,6 +46,10 @@ class MuxEncoder:
             if c.fm_video_exact is not None:
                 raise ValueError("mux channels cannot run FM video on the "
                                  "host (give them an offset or swap_iq)")
+        for c in self.channels:
+            # the channels' steps run eagerly: graphed, each channel
+            # would hold a graph pool of its own beside the sum's blocks
+            c._graphs = None
         self.frames_per_block = c0.frames_per_block
         self.params = c0.params
         self.complex_out = c0.complex_out

@@ -12,7 +12,8 @@ moving sources in 4-frame blocks and the LUT gather, checkpoints
 written on one device and resumed on the other, and the encoders sharded
 over 2 and 4 shards of the card (`devices=`), on the card against their
 CPU path (byte for byte); the tracer's events and launch counts on the
-card.  They skip without an NVIDIA card.  The file imports
+card; the block step replayed as CUDA graphs against eager steps.
+They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
@@ -139,6 +140,87 @@ def test_pinned_copy_back_keeps_every_block(cuda):
         assert np.array_equal(a, cp), f"block {b} changed after its collect"
         want = c.encode_block(b)
         assert a.dtype == want.dtype and a.tobytes() == want.tobytes(), b
+
+
+GRAPH_COUNTERS = ("step.eager", "step.graph_captures", "step.graph_replays",
+                  "step.graph_failures", "fir_cplx.launches",
+                  "secam.windows")
+
+
+def _stream_counted(enc, nblocks: int):
+    """nblocks blocks streamed as the command line streams them (block b
+    + 1 dispatched before block b is collected): the host samples, and
+    each block's dispatch's growth of GRAPH_COUNTERS."""
+    out, grew = [], []
+    pending = None
+    for b in range(nblocks + 1):
+        if b < nblocks:
+            c0 = telemetry.counters()
+            nxt = enc.encode_block_device(b)
+            c1 = telemetry.counters()
+            grew.append(tuple(c1.get(k, 0) - c0.get(k, 0)
+                              for k in GRAPH_COUNTERS))
+        if pending is not None:
+            out.append(enc.collect_block(b - 1, pending))
+        pending = nxt if b < nblocks else None
+    return out, grew
+
+
+@pytest.mark.parametrize("mode", ["i", "l"])
+def test_step_graphs_equal_eager_steps(cuda, mode):
+    """pal-i-vsb and secam-l-vsb as the benchmark builds them (`-m i` or
+    `-m l`, `--filter`, 16 MS/s, 16-frame blocks, the test card with
+    noise for sound), twelve blocks through the step's CUDA graphs and
+    through an eager twin (no graphs kept): byte for byte, every
+    metadata key twice and the NICAM, FM and SECAM carries chained
+    through the replays.  The graphs engage at the second sight of a
+    signature: blocks 0 and 1 eager, block 2 captured, the rest
+    replayed; the stream FIR's launches and SECAM's windows still count
+    one a block."""
+    def make():
+        probe = Encoder(mode, 16_000_000, device="cpu")
+        src = NoiseSource(probe.params.active_width,
+                          probe.conf.active_lines)
+        return Encoder(mode, 16_000_000, vfilter=True, frames_per_block=16,
+                       source=src, device=cuda)
+    graphed, eager = make(), make()
+    eager._graphs.limit = 0
+    nblocks = 12
+    got, grew = _stream_counted(graphed, nblocks)
+    want, grew_eager = _stream_counted(eager, nblocks)
+    secam = 1 if mode == "l" else 0
+    assert grew[:3] == [(1, 0, 0, 0, 1, secam), (1, 0, 0, 0, 1, secam),
+                        (1, 1, 0, 0, 1, secam)]
+    assert grew[3:] == [(0, 0, 1, 0, 1, secam)] * (nblocks - 3)
+    assert grew_eager == [(1, 0, 0, 0, 1, secam)] * nblocks
+    for b, (a, w) in enumerate(zip(got, want, strict=True)):
+        assert a.tobytes() == w.tobytes(), \
+            f"block {b}: {np.count_nonzero(a != w)} of {a.size} differ"
+
+
+@pytest.mark.parametrize("kw", [{"wss": "auto", "vits": True},
+                                {"sis": "dcsis"}],
+                         ids=["wss-vits", "sis"])
+def test_step_graphs_with_changing_signatures(cuda, kw):
+    """One-frame PAL-I blocks with VBI services whose block arrays vary
+    from block to block and follow no wall clock: through the graphs and
+    through an eager twin, byte for byte; it reports how many of its
+    blocks replayed."""
+    make = lambda: Encoder("i", 16_000_000, vfilter=True, device=cuda,
+                           **kw)
+    graphed, eager = make(), make()
+    eager._graphs.limit = 0
+    nblocks = 10
+    got, grew = _stream_counted(graphed, nblocks)
+    want, _ = _stream_counted(eager, nblocks)
+    replays = sum(g[2] for g in grew)
+    print(f"{sorted(kw)}: {replays} of {nblocks} blocks replayed, "
+          f"{sum(g[1] for g in grew)} captured")
+    assert sum(g[3] for g in grew) == 0
+    assert all(g[0] + g[2] == 1 for g in grew)
+    for b, (a, w) in enumerate(zip(got, want, strict=True)):
+        assert a.tobytes() == w.tobytes(), \
+            f"block {b}: {np.count_nonzero(a != w)} of {a.size} differ"
 
 
 @pytest.mark.parametrize("branch", ["fuse1", "fuse2"])
