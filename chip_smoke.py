@@ -928,7 +928,7 @@ def vbi_phase() -> None:
     (bits and basis read once, the f32 lines written once) over the memory
     rate; and the render with TF32 on against the CPU, with the count of
     values a plain f32 matmul under TF32 would get wrong."""
-    from hacktv_tpu_torch.services import arrays_to_device
+    from hacktv_tpu_torch.transfer import arrays_to_device
     from hacktv_tpu_torch.video import raster
     for path in ("pal-i-teletext-vsb", "m-cc608-acp", "i-sis"):
         spec = PATHS[path]
@@ -1070,7 +1070,7 @@ def scramble_phase() -> None:
     1-3), its apply on the card (CUDA events) against the same call on
     the CPU on a seeded block with the service's halo: byte-equal
     required."""
-    from hacktv_tpu_torch.services import arrays_to_device
+    from hacktv_tpu_torch.transfer import arrays_to_device
     for path in SCRAMBLE_PATHS:
         spec = CPU_PATHS[path]
         g = build(spec, "cuda", noise_source(spec), FPB)

@@ -24,7 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import telemetry, transfer
 from ..config.standards import Modulation, Preemph, VidConfig
 from . import dance as dance_mod
 from . import nicam as nicam_mod
@@ -434,8 +434,8 @@ class AudioChain:
         # never advancing past f0 (the final call must cover [f0, f1))
         while f1 - fa > dst.nf_max:
             nc = min(dst.nf_max - 4, f0 - fa)
-            pcm = torch.as_tensor(self._nicam_pcm_win(fa, dst),
-                                  device=dsym.device)
+            pcm = transfer.upload(self._nicam_pcm_win(fa, dst),
+                                  dsym.device)
             _, _, dsym = dev_fn(pcm, dsym, fa % 16, spp, nc * fs_)
             fa += nc
         base_off = spp - (f0 - fa) * fs_

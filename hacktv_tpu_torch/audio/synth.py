@@ -29,7 +29,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .. import telemetry
+from .. import transfer
 
 
 @dataclass
@@ -752,7 +752,7 @@ def nicam_add(st: NicamStatics, out_i: torch.Tensor, out_q: torch.Tensor,
             # P, its window g' the block's window g' + (c' + line0) // P
             c = np.arange(P, dtype=np.int64) + line0
             start = start[c % P] + (c // P) * spp
-        starts = telemetry.upload(start, dev)
+        starts = transfer.upload(start, dev)
     if line0:
         k0_mod = (k0_mod + line0) % P
     idx = starts[:, None, None, None] + grid

@@ -34,8 +34,9 @@ import torch
 from . import runtime
 from .av.testcard import TestCardSource
 from .config.standards import get_mode
-from .encoder import Encoder, resolve_device
+from .encoder import Encoder
 from .mux import MuxEncoder
+from .transfer import resolve_device
 from .video.mac import MacEncoder
 
 # secondary configs: python -m hacktv_tpu_torch.bench --mode dmac / secam

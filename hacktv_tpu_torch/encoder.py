@@ -71,6 +71,7 @@ from . import runtime
 from . import shard
 from . import step_graph
 from . import telemetry
+from . import transfer
 from .audio import nicam as nicam_mod
 from .audio import nicam_dev
 from .audio import synth as audio_synth
@@ -83,7 +84,7 @@ from .ops import resampler
 from .ops.stream_fir import bind as bind_stream_fir
 from .ops.stream_fir import stream_fir
 from .rf import ops as rf_ops
-from .services import arrays_to_device, window_arrays
+from .services import window_arrays
 from .services.acp import ACP
 from .services.cc608 import CC608
 from .services.sis import SiS
@@ -106,64 +107,6 @@ _FLOAT_KEYS = ("burst", "vswitch", "cos0", "sin0")
 _SVC_NLINES = {"VITS": 1, "WSS": 1, "Videocrypt": 2, "VideocryptS": 126,
                "Syster": 345, "SysterCNR": 2, "D11": 2, "ACP": 1, "VITC": 1,
                "CC608": 1, "SiS": 1, "Teletext": 1}
-
-
-def resolve_device(device) -> torch.device:
-    """The torch device for `device`; a CUDA device must be present."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the plain PyTorch versions on the CPU")
-    return dev
-
-
-def _wait_queued(out) -> None:
-    """Wait for what a copy of `out` issued now (`to_host`) waits
-    behind: the event recorded after the step that made `out`
-    (`encode_block_device`), where it has one, else everything queued so
-    far on the stream of each card that holds a part of `out`."""
-    done = getattr(out, "_step_done", None)
-    if done is not None:
-        done.synchronize()
-        return
-    for t in (out if isinstance(out, shard.ShardedBlock) else (out,)):
-        if t.device.type == "cuda":
-            torch.cuda.current_stream(t.device).synchronize()
-
-
-def to_host(out) -> np.ndarray:
-    """A block's device output as a host array that owns its memory.
-
-    A card's tensor is copied into page-locked memory from torch's
-    caching host allocator, on a copy stream beside the compute stream.
-    The copy waits only on the event recorded after the step that made
-    `out` (`_step_done`), so not on blocks queued after it; without one
-    (a block the encoder did not make), on everything queued so far on
-    the card's stream.  The call returns once the copy has ended and
-    counts it ("collect.pinned", "collect.pinned_bytes").  The array
-    holds its page-locked block, which the allocator reuses only after
-    the array is gone.  A CPU tensor's memory is returned as it is, and a
-    sharded block is joined by `ShardedBlock.host`."""
-    if isinstance(out, shard.ShardedBlock):
-        return out.host()
-    if out.device.type != "cuda":
-        return out.cpu().numpy()
-    copy = torch.cuda.Stream(out.device)      # from torch's stream pool
-    done = getattr(out, "_step_done", None)
-    if done is None:
-        copy.wait_stream(torch.cuda.current_stream(out.device))
-    else:
-        copy.wait_event(done)
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    with torch.cuda.stream(copy):
-        host.copy_(out, non_blocking=True)
-    # the caching allocator hands out's memory to later work only once
-    # the copy has read it
-    out.record_stream(copy)
-    copy.synchronize()
-    telemetry.count("collect.pinned")
-    telemetry.count("collect.pinned_bytes", host.nbytes)
-    return host.numpy()
 
 
 class Encoder:
@@ -193,7 +136,7 @@ class Encoder:
             # the first shard's device holds the host state's tensors
             devices = shard.resolve_devices(devices)
             device = devices[0]
-        self.device = resolve_device(device)
+        self.device = transfer.resolve_device(device)
         # cos/sin of the FM phase at every sample, not through the K=4
         # rotation chain (hacktv_tpu's switch of the same name)
         self._fm_direct = fm_direct_trig
@@ -616,10 +559,10 @@ class Encoder:
             meta = dict(meta)
             meta["vy"] = np.where(vy0 >= 0, f_local * (H + 1) + vy0,
                                   f_local * (H + 1) + H)
-        dev = {k: telemetry.upload(meta[k].astype(np.int64), self.device)
+        dev = {k: transfer.upload(meta[k].astype(np.int64), self.device)
                for k in _INDEX_KEYS}
-        dev.update({k: telemetry.upload(meta[k].astype(np.float32),
-                                        self.device)
+        dev.update({k: transfer.upload(meta[k].astype(np.float32),
+                                       self.device)
                     for k in _FLOAT_KEYS})
         self._meta_cache[key] = dev
         return dev
@@ -645,7 +588,7 @@ class Encoder:
                 return self._rgb_cache[1]
             stack = np.stack([self._read_frame(block_no, j)
                               for j in range(self._nf)])
-            dev = (self._lut(), telemetry.upload(stack, self.device))
+            dev = (self._lut(), transfer.upload(stack, self.device))
             self._rgb_cache = (("blk", block_no), dev)
             return dev
         rgb = self.source.read_video(block_no * self.frames_per_block)
@@ -660,8 +603,8 @@ class Encoder:
                   "repeats each block's first frame; use "
                   "--frames-per-block 1 for moving video", file=sys.stderr)
         if self._dev_convert:
-            dev = (self._lut(), telemetry.upload(np.ascontiguousarray(rgb),
-                                                 self.device))
+            dev = (self._lut(), transfer.upload(np.ascontiguousarray(rgb),
+                                                self.device))
             self._rgb_cache = (rgb, dev)
             return dev
         if self.statics.fsc_mode is not None:
@@ -678,7 +621,7 @@ class Encoder:
             # (src/video.c:3944-3953)
             host = raster.rgb_to_yuv_host(self.params, rgb,
                                           secam=self.secam is not None)
-        yuv = tuple(telemetry.upload(a, self.device) for a in host)
+        yuv = tuple(transfer.upload(a, self.device) for a in host)
         self._rgb_cache = (rgb, yuv)
         # the host-exact SECAM chroma reads the host planes
         self._rgb_host_uv = host[1:]
@@ -688,7 +631,7 @@ class Encoder:
         """The conversion LUT on the device (SECAM's u/v are FM frequency
         offsets, src/video.c:3944-3953), built at first use."""
         if self._yuv_lut is None:
-            self._yuv_lut = telemetry.upload(
+            self._yuv_lut = transfer.upload(
                 raster.build_yuv_lut(self.params, self.secam is not None),
                 self.device)
         return self._yuv_lut
@@ -1016,7 +959,7 @@ class Encoder:
         """Host side of an FM carrier whose held values are computed on
         the host (AudioChain.fm_compact_block or fm_block), as tensors
         where the step reads them on the device."""
-        t = lambda a: telemetry.upload(np.ascontiguousarray(a), self.device)
+        t = lambda a: transfer.upload(np.ascontiguousarray(a), self.device)
         if fw is not None:
             d = self.audio.fm_compact_block(carrier, k0, nlines, fw)
             d["xa"] = t(torch.tensor(d["xa"], dtype=torch.int32))
@@ -1042,7 +985,7 @@ class Encoder:
         a_k0 = k0 + (1 if self.conf.vfilter else 0) \
             + (1 if self.resampler is not None else 0)
         dev = self.device
-        up = telemetry.upload
+        up = transfer.upload
         args = {}
         if self.services:
             # one claimed mask: a service skips lines an earlier one took
@@ -1050,8 +993,8 @@ class Encoder:
             claimed = np.zeros(n, dtype=bool)
             with telemetry.span("dispatch.audio.services"):
                 args["services"] = tuple(
-                    arrays_to_device(svc.block_arrays(k0 - 1, n, claimed),
-                                     dev)
+                    transfer.arrays_to_device(
+                        svc.block_arrays(k0 - 1, n, claimed), dev)
                     for svc in self.services)
         if self.raw_bb is not None:
             args["rawbb"] = up(self.raw_bb.block(
@@ -1131,7 +1074,7 @@ class Encoder:
             # first encoded block may start mid-stream: seed the
             # anchor with the host-exact pre-span sum
             i0b = self.audio.fm_dev_i0(a_k0, self.fm_win)
-            self._fm_xa[block_no] = [i0b, telemetry.upload(torch.tensor(
+            self._fm_xa[block_no] = [i0b, transfer.upload(torch.tensor(
                 self.audio.fm_dev_seed_xa(c, i0b, self.fm_win),
                 dtype=torch.int32), self.device)]
         self._fm_xa_started = True
@@ -1149,7 +1092,7 @@ class Encoder:
         self._fm_xa[block_no + 1] = [i0n, None]
         self._fm_xa.pop(block_no - 2, None)
         for k in ("pcm", "col0", "ctab", "stab"):
-            dct[k] = telemetry.upload(dct[k], self.device)
+            dct[k] = transfer.upload(dct[k], self.device)
         return dct
 
     def _fm_exact_block(self, a_k0: int, nlines: int) -> np.ndarray:
@@ -1214,7 +1157,7 @@ class Encoder:
         add = secam_mod.carrier_addin_host(st, W, nm, chroma,
                                            self._secam_lut)
         return {"meta": sm, "host": nm,
-                "add": telemetry.upload(add, self.device)}
+                "add": transfer.upload(add, self.device)}
 
     def _nicam_dev_fn(self, *a):
         """signs_device on this encoder's statics (the seek catch-up)."""
@@ -1227,9 +1170,9 @@ class Encoder:
         returns the shards' tensors in line order (shard.ShardedBlock),
         each on its device.  On a single card the step replays as a CUDA
         graph where its host inputs repeat (`_graphed_step`).  A card's
-        tensor carries the event recorded after its step (`_step_done`),
-        which its copy back (`to_host`) waits on.  With the tracer on
-        (telemetry.py) each stage is a span."""
+        tensor carries the event recorded after its step (`_step_done`,
+        transfer.mark_done), which its copy back waits on.  With the
+        tracer on (telemetry.py) each stage is a span."""
         span = telemetry.span
         with span("dispatch", block_no):
             with span("dispatch.rgb"):
@@ -1246,11 +1189,7 @@ class Encoder:
                 audio = self._audio_args(block_no, secam)
             with span("dispatch.step"):
                 out, carry = step(yuv, m, first, audio)
-                if isinstance(out, torch.Tensor) and out.is_cuda:
-                    # what the block's copy back waits on (to_host)
-                    out._step_done = torch.cuda.Event()
-                    out._step_done.record(
-                        torch.cuda.current_stream(out.device))
+                transfer.mark_done(out)
             with span("dispatch.carry"):
                 self._take_carry(block_no, carry)
         return out
@@ -1359,45 +1298,16 @@ class Encoder:
         """Output samples per frame."""
         return self.out_params.frame_samples
 
-    def encode_block(self, block_no: int) -> np.ndarray:
-        """Host int16 samples for one block: [n] for real output modes,
-        interleaved [n, 2] I/Q for complex/audio modes."""
-        return self.collect_block(block_no,
-                                  self.encode_block_device(block_no))
+    encode_block = transfer.encode_block
 
     def collect_block(self, block_no: int, dev: torch.Tensor) -> np.ndarray:
-        """Device tensor -> host int16 samples.  Splitting dispatch
-        (encode_block_device) from collection lets a caller overlap the
-        copy of block b with the device compute of block b+1.
-
-        On a card the block is copied (`to_host`) into page-locked
-        memory from torch's caching host allocator, on a copy stream
-        that waits only on the event recorded after block b's step, so
-        not on block b+1's kernels queued behind it; it returns when
-        that copy has ended.  The returned array owns its memory: a
-        caller may keep it for as long as it likes, and later blocks
-        never overwrite it.  A CPU tensor is returned without a copy; a
-        sharded block is joined by `ShardedBlock.host`.
-
-        For FM video on the host, the FM recurrence runs here over the
-        composite (the I channel), so blocks must be collected in
-        order.  With the tracer on, it first waits for what the copy
-        waits behind (`collect.wait`: block b's step, or all the work
-        queued on the block's cards where it has no step event), so that
-        `collect.copy` holds the copy alone."""
-        span = telemetry.span
-        with span("collect", block_no):
-            if telemetry.enabled():
-                with span("collect.wait"):
-                    _wait_queued(dev)
-            with span("collect.copy"):
-                a = to_host(dev)
-            if self.fm_video_exact is not None:
-                with span("collect.fm_video"):
-                    return self._fm_video_host(block_no, a)
-        if a.ndim == 3:
-            return a.reshape(-1, 2)
-        return a.reshape(-1)
+        """Device tensor -> host int16 samples (transfer.collect_block);
+        the copy of block b overlaps block b+1's step.  For FM video on
+        the host the FM recurrence runs here over the composite (the I
+        channel), so blocks must be collected in order."""
+        return transfer.collect_block(
+            self, block_no, dev,
+            None if self.fm_video_exact is None else self._fm_video_host)
 
     def _fm_video_host(self, block_no: int, a: np.ndarray) -> np.ndarray:
         """The host-exact FM-video recurrence over a block's composite

@@ -11,10 +11,9 @@ capture file.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .encoder import to_host
+from . import transfer
 from .shard import ShardedBlock
 
 
@@ -60,11 +59,12 @@ class MuxEncoder:
 
     def encode_block_device(self, block_no: int):
         """The channels' blocks wrap-added on the device; channels sharded
-        alike (`devices=`) are added shard by shard."""
+        alike (`devices=`) are added shard by shard.  On a card the sum
+        carries the event its copy back waits on (transfer.mark_done)."""
         outs = [c.encode_block_device(block_no) for c in self.channels]
         if isinstance(outs[0], ShardedBlock):
             return ShardedBlock(self._sum(parts) for parts in zip(*outs))
-        return self._sum(outs)
+        return transfer.mark_done(self._sum(outs))
 
     @staticmethod
     def _sum(outs) -> torch.Tensor:
@@ -73,12 +73,5 @@ class MuxEncoder:
             raise ValueError(f"mux channel blocks differ: {shapes}")
         return _sum_wrap(outs)
 
-    def collect_block(self, block_no: int, dev) -> np.ndarray:
-        a = to_host(dev)
-        if a.ndim == 3:
-            return a.reshape(-1, 2)
-        return a.reshape(-1)
-
-    def encode_block(self, block_no: int) -> np.ndarray:
-        return self.collect_block(block_no,
-                                  self.encode_block_device(block_no))
+    collect_block = transfer.collect_block
+    encode_block = transfer.encode_block

@@ -5,24 +5,7 @@ lines to the block on the device (`apply`, torch)."""
 
 from __future__ import annotations
 
-import numpy as np
 import torch
-
-from .. import telemetry
-
-
-def arrays_to_device(arrays: dict, device) -> dict:
-    """A service's host block arrays for its `apply`: numpy arrays as
-    tensors on `device`, numpy scalars as Python numbers."""
-    out = {}
-    for k, v in arrays.items():
-        if isinstance(v, np.ndarray):
-            out[k] = telemetry.upload(np.ascontiguousarray(v), device)
-        elif isinstance(v, np.generic):
-            out[k] = v.item()
-        else:
-            out[k] = v
-    return out
 
 
 def window_arrays(svc, arrays: dict, r0: int, r1: int) -> dict:

@@ -272,8 +272,4 @@ def period_window(tab: torch.Tensor, a: int, n: int) -> torch.Tensor:
 class ShardedBlock(tuple):
     """A block's output as the shards' tensors in line order, each on its
     shard's device (what `encode_block_device` of a sharded encoder
-    returns); `host` copies them into one host array."""
-
-    def host(self) -> np.ndarray:
-        parts = [t.cpu().numpy() for t in self]
-        return np.concatenate(parts, axis=0)
+    returns); `transfer.join` copies them into one host array."""

@@ -16,9 +16,8 @@ range named "hacktv.<name>", so it lands on the profiler's timeline beside
 the device's work.
 
 Counters always count, on or off: plain integer adds that nothing
-clears, so a reader takes the difference of two readings.  `upload` is
-the block path's one way to copy a host array to a device, and counts
-"uploads".  `take()` returns what was recorded and clears the spans.
+clears, so a reader takes the difference of two readings.  `take()`
+returns what was recorded and clears the spans.
 
 The tracer is one per process and not thread-safe: spans are opened on
 the thread that encodes (the command line's loop, the benchmark's).
@@ -123,15 +122,6 @@ def counters() -> dict:
 def totals() -> dict:
     """Seconds spent in each span name so far, without clearing."""
     return {k: v[0] / 1e9 for k, v in _totals.items()}
-
-
-def upload(a, device):
-    """`torch.as_tensor(a, device=device)`, counted in "uploads": the
-    block path's copies of host arrays to the encoder's device
-    (pageable, blocking, the array's dtype)."""
-    import torch
-    _counters["uploads"] = _counters.get("uploads", 0) + 1
-    return torch.as_tensor(a, device=device)
 
 
 def take() -> dict:

@@ -18,7 +18,8 @@ import time
 
 from .. import telemetry
 from ..bench import device_fields, wait
-from ..encoder import Encoder, resolve_device
+from ..encoder import Encoder
+from ..transfer import resolve_device
 
 HOST_SPANS = ("dispatch.rgb", "dispatch.meta", "dispatch.audio")
 

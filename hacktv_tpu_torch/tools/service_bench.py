@@ -22,8 +22,8 @@ import numpy as np
 
 from .. import create_encoder
 from ..bench import device_fields, stream_trials
-from ..encoder import resolve_device
 from ..services.eurocrypt import Eurocrypt
+from ..transfer import resolve_device
 
 CONFIGS = {
     # label -> (mode, rate, encoder kwargs)

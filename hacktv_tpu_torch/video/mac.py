@@ -37,11 +37,10 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from .. import runtime, shard, telemetry
+from .. import runtime, shard, telemetry, transfer
 from ..audio.mac_audio import MacAudioEnc
 from ..config.standards import MacMode, Modulation, OutputType, VidConfig, \
     get_mode
-from ..encoder import to_host
 from ..ops import mac_bits as mb
 from ..ops import resampler
 from ..ops.shapes import rrc
@@ -1354,12 +1353,11 @@ class MacEncoder:
                  teletext: str | None = None, teletext_clock=None,
                  devices=None, pipeline_mux: bool = False,
                  device="cuda", native: bool = True):
-        from ..encoder import resolve_device
         if devices is not None:
             # the first shard's device holds the host state's tensors
             devices = shard.resolve_devices(devices)
             device = devices[0]
-        self.device = resolve_device(device)
+        self.device = transfer.resolve_device(device)
         conf = get_mode(mode) if isinstance(mode, str) else mode
         if conf.mac_mode is None:
             raise ValueError("MacEncoder takes a D/D2-MAC mode; use "
@@ -1591,7 +1589,7 @@ class MacEncoder:
             self._plane_shape = shape
         elif shape != self._plane_shape:
             raise ValueError("source frame size changed mid-stream")
-        dev = tuple(torch.as_tensor(a, device=self.device)
+        dev = tuple(transfer.upload(a, self.device)
                     for a in (y_img, u_img, v_img))
         self._plane_cache = (rgb, dev)
         return dev
@@ -1953,7 +1951,7 @@ class MacEncoder:
                 self._fm_r[block_no + 1] = fm_carry
                 self._fm_r.pop(block_no - 2, None)
             return out
-        t = lambda a: torch.as_tensor(a).to(self.device)
+        t = lambda a: transfer.upload(a, self.device)
         if prep[0] == "dev":
             out, fm_carry, pol_carry = self._step_impl_dev(
                 t(prep[1]), self._pol_c[block_no], planes, meta, fm_r0)
@@ -1961,11 +1959,11 @@ class MacEncoder:
             self._pol_c.pop(block_no - 2, None)
         else:
             _, packed, pol0, scr_apply, xc1, xc2 = prep
-            first = torch.tensor(0.0 if block_no == 0 else 1.0,
-                                 device=self.device)
+            first = t(0.0 if block_no == 0 else 1.0)
             out, fm_carry = self._step_impl(
                 t(packed), t(pol0), planes, meta, t(scr_apply), t(xc1),
                 t(xc2), fm_r0, first)
+        transfer.mark_done(out)
         if fm_carry is not None:
             # the carry stays a device scalar: no host sync, the next
             # block's dispatch chains on it
@@ -1986,7 +1984,7 @@ class MacEncoder:
         stages = {}
         for dev in self._plan.distinct():
             rep = shard.replica(self, dev, self._DEVICE_STATICS)
-            t = lambda a: torch.as_tensor(a).to(dev)
+            t = lambda a: transfer.upload(a, dev)
             if prep[0] == "dev":
                 bits, p0, scr, xc1, xc2, first, pol = rep._bits_dev(
                     t(prep[1]), shard.to_shard(self._pol_c[block_no], dev))
@@ -1996,8 +1994,7 @@ class MacEncoder:
                                           torch.int32)
                 p0 = t(pol0).to(torch.int32)[:, None]
                 scr, xc1, xc2 = t(scr), t(xc1), t(xc2)
-                first = torch.tensor(0.0 if block_no == 0 else 1.0,
-                                     device=dev)
+                first = t(0.0 if block_no == 0 else 1.0)
                 pol = None
             stages[shard.device_key(dev)] = (
                 rep, (bits, p0, shard.on(self, dev, "planes", planes),
@@ -2084,17 +2081,8 @@ class MacEncoder:
         self._next_block = b
         return b
 
-    def encode_block(self, block_no: int) -> np.ndarray:
-        """Host int16 samples: [n] for real-baseband modes, interleaved
-        [n, 2] I/Q for complex/FM modes."""
-        return self.collect_block(block_no,
-                                  self.encode_block_device(block_no))
-
-    def collect_block(self, block_no: int, dev) -> np.ndarray:
-        a = to_host(dev)
-        if a.ndim == 3:
-            return a.reshape(-1, 2)
-        return a.reshape(-1)
+    collect_block = transfer.collect_block
+    encode_block = transfer.encode_block
 
     def block_audio_pcm(self, block_no: int):
         """32 kHz int16 stereo pairs consumed during this block — the

@@ -12,7 +12,8 @@ moving sources in 4-frame blocks and the LUT gather, checkpoints
 written on one device and resumed on the other, and the encoders sharded
 over 2 and 4 shards of the card (`devices=`), on the card against their
 CPU path (byte for byte); the tracer's events and launch counts on the
-card; the block step replayed as CUDA graphs against eager steps.
+card; the pinned copy back of the raster encoder, D2-MAC and the mux;
+the block step replayed as CUDA graphs against eager steps.
 They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
@@ -113,20 +114,36 @@ def test_tracing_on_the_card(cuda, shards):
         assert w[2] == c[2] == "collect" and w[4] <= c[3]
 
 
-def test_pinned_copy_back_keeps_every_block(cuda):
-    """Six 16-frame PAL-I blocks with the VSB filter streamed as the
-    command line does (block b + 1 dispatched before block b is
-    collected), every returned array kept: each equals the CPU encoder's
-    block byte for byte and is unchanged after the later blocks were
-    collected, and each went back through page-locked memory once."""
+def _copy_back_encoder(name, device):
+    """PAL-I with the VSB filter in 16-frame blocks, D2-MAC with FM or
+    two PAL-I transmitters 4.5 MHz apart at 20 MS/s, in 4-frame
+    blocks."""
+    if name == "i":
+        return Encoder("i", 16_000_000, vfilter=True, frames_per_block=16,
+                       device=device)
+    if name == "d2mac-fm":
+        return _mac("d2mac-fm", {}, device, fpb=4)
+    return MuxEncoder([Encoder("i", 20_000_000, offset=o,
+                               frames_per_block=4, device=device)
+                       for o in (-2_250_000, 2_250_000)])
+
+
+@pytest.mark.parametrize("name", ["i", "d2mac-fm", "mux-i"])
+def test_pinned_copy_back_keeps_every_block(cuda, name):
+    """Six blocks of PAL-I, D2-MAC and the two-channel mux streamed as
+    the command line does (block b + 1 dispatched before block b is
+    collected), every returned array kept: each block carries its step's
+    event, and each array equals the CPU encoder's block byte for byte,
+    is unchanged after the later blocks were collected and went back
+    through page-locked memory once."""
     nblocks = 6
-    g, c = (Encoder("i", 16_000_000, vfilter=True, frames_per_block=16,
-                    device=d) for d in (cuda, "cpu"))
+    g, c = (_copy_back_encoder(name, d) for d in (cuda, "cpu"))
     n0 = telemetry.counters()
     kept, copies = [], []
     pending = g.encode_block_device(0)
     for b in range(1, nblocks + 1):
         nxt = g.encode_block_device(b) if b < nblocks else None
+        assert isinstance(pending._step_done, torch.cuda.Event), b - 1
         kept.append(g.collect_block(b - 1, pending))
         copies.append(kept[-1].copy())
         pending = nxt
@@ -648,7 +665,7 @@ def test_dance_product_card_matches_cpu(cuda, tf32):
 def test_scrambler_applies_card_match_cpu(cuda, name):
     """Each scrambler's apply at the 64-frame block's shape (its halo
     included) on a seeded block, card against CPU."""
-    from hacktv_tpu_torch.services import arrays_to_device
+    from hacktv_tpu_torch.transfer import arrays_to_device
     mode, rate, kw = SCRAMBLE_CASES[name]
     g = Encoder(mode, rate, frames_per_block=64, device=cuda, **kw)
     c = Encoder(mode, rate, frames_per_block=64, device="cpu", **kw)

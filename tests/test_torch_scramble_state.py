@@ -23,7 +23,7 @@ from hacktv_tpu.services import videocrypts as jvcs
 from hacktv_tpu.video.params import VideoParams as JParams
 from hacktv_tpu_torch.av.testcard import TestCardSource as _Card
 from hacktv_tpu_torch.config import get_mode
-from hacktv_tpu_torch.services import arrays_to_device
+from hacktv_tpu_torch.transfer import arrays_to_device
 from hacktv_tpu_torch.services import syster as tsyster
 from hacktv_tpu_torch.services import syster_ca as tca
 from hacktv_tpu_torch.services import videocrypt as tvc

@@ -24,7 +24,7 @@ from hacktv_tpu.services import teletext as jtt
 from hacktv_tpu.services import vitc as jvitc
 from hacktv_tpu.services import wss as jwss
 from hacktv_tpu_torch import Encoder as TEncoder
-from hacktv_tpu_torch.services import arrays_to_device
+from hacktv_tpu_torch.transfer import arrays_to_device
 from hacktv_tpu_torch.services import cc608 as tcc
 from hacktv_tpu_torch.services import teletext as ttt
 from hacktv_tpu_torch.services import vitc as tvitc

@@ -2,7 +2,8 @@
 leaves an encoder's samples as they are, records nothing while off, and
 while on records each block's dispatch with its five stages and its copy
 back, nested and carrying the block number; the block path's uploads
-are counted; SECAM-L's chroma program, its metadata and its AM sound are
+are counted (PAL-I and D2-MAC); on the CPU a collect copies nothing (the
+raster encoder, D2-MAC and the two-channel mux); SECAM-L's chroma program, its metadata and its AM sound are
 spans of their stages, and SECAM's counters count its blocks, its time
 and its metadata builds (PAL-I leaves them); the native file sink counts
 its bytes and its conversion; the spans reach an active torch.profiler's
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from hacktv_tpu_torch import Encoder, runtime, telemetry
+from hacktv_tpu_torch.mux import MuxEncoder
+from hacktv_tpu_torch.video.mac import MacEncoder
 
 BLOCKS = 3
 STAGES = {"dispatch.rgb", "dispatch.meta", "dispatch.audio", "dispatch.step",
@@ -30,15 +33,33 @@ def _tracer_off():
     telemetry.take()
 
 
-def _run(on: bool) -> dict:
-    """BLOCKS one-frame blocks of PAL-I with the VSB filter through
-    dispatch and collect, the tracer on or off: the samples, the uploads
-    counted at each block's dispatch, and the tracer's record."""
+def _pal_i():
+    return Encoder("i", 16_000_000, vfilter=True, device="cpu",
+                   frames_per_block=1)
+
+
+def _d2mac_fm():
+    return MacEncoder("d2mac-fm", 20_250_000, device="cpu")
+
+
+def _mux_i():
+    """Two PAL-I transmitters 4.5 MHz apart on one 20 MS/s stream."""
+    return MuxEncoder([Encoder("i", 20_000_000, offset=o, device="cpu")
+                       for o in (-2_250_000, 2_250_000)])
+
+
+ENCODERS = {"i": _pal_i, "d2mac-fm": _d2mac_fm, "mux-i": _mux_i}
+
+
+def _run(on: bool, make=_pal_i) -> dict:
+    """BLOCKS one-frame blocks of PAL-I with the VSB filter (or what
+    `make` builds) through dispatch and collect, the tracer on or off:
+    the samples, the uploads counted at each block's dispatch, and the
+    tracer's record."""
     telemetry.take()
     telemetry.enable(on)
     try:
-        enc = Encoder("i", 16_000_000, vfilter=True, device="cpu",
-                      frames_per_block=1)
+        enc = make()
         out, uploads = [], []
         c0 = telemetry.counters()
         for b in range(BLOCKS):
@@ -90,18 +111,26 @@ def test_each_block_dispatch_has_its_stages(runs):
         rec["totals"]["dispatch.audio"]
 
 
-def test_uploads_counted_on_each_steady_block(runs):
+@pytest.mark.parametrize("name", ["i", "d2mac-fm"])
+def test_uploads_counted_on_each_steady_block(runs, name):
+    """Every block after the first uploads as many host arrays
+    (transfer.upload), the same with the tracer on or off: PAL-I, and
+    D2-MAC's one upload buffer a block."""
+    if name != "i":
+        runs = {"off": _run(False, ENCODERS[name]),
+                "on": _run(True, ENCODERS[name])}
     for r in runs.values():
         steady = r["uploads"][1:]
         assert steady[0] > 0 and len(set(steady)) == 1
     assert runs["on"]["uploads"] == runs["off"]["uploads"]
 
 
-def test_cpu_collect_copies_nothing():
+@pytest.mark.parametrize("name", sorted(ENCODERS))
+def test_cpu_collect_copies_nothing(name):
     """On the CPU, collect_block returns the step's own memory reshaped,
-    with no step event and no copy through page-locked memory."""
-    enc = Encoder("i", 16_000_000, vfilter=True, device="cpu",
-                  frames_per_block=1)
+    with no step event and no copy through page-locked memory: the
+    raster encoder, D2-MAC and the two-channel mux."""
+    enc = ENCODERS[name]()
     before = telemetry.counters()
     dev = enc.encode_block_device(0)
     out = enc.collect_block(0, dev)
