@@ -660,16 +660,18 @@ def main(argv=None) -> int:
 
 def _print_sink_stats(st: dict) -> None:
     """-v's line at close: a hardware sink's underruns, or the file
-    sink's conversion and FIFO times, bytes and peak level."""
+    sink's bytes, conversion and wait times, most bytes in flight and
+    writes borrowed."""
     if "underruns" in st:
         print(f"sink: {st['underruns']} underrun"
               f"{'s' if st['underruns'] != 1 else ''}, longest "
               f"{st['longest_shortfall_bytes']} bytes", file=sys.stderr)
     else:
         print(f"file sink: {st['bytes_in']} bytes in; converting "
-              f"{st['convert_ns'] / 1e6:.1f} ms, into its FIFO "
-              f"{st['queue_ns'] / 1e6:.1f} ms, FIFO peak "
-              f"{st['fifo_peak_bytes']} bytes", file=sys.stderr)
+              f"{st['convert_ns'] / 1e6:.1f} ms, waiting for room "
+              f"{st['wait_ns'] / 1e6:.1f} ms, peak {st['peak_bytes']} "
+              f"bytes in flight, borrowed writes {st['borrowed']}",
+              file=sys.stderr)
 
 
 def _write_spans(out_dir: str, sink) -> None:

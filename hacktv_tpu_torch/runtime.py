@@ -13,18 +13,20 @@ from ops/mac_bits.py; `rt_mac_audio_blocks`, the sound coding blocks,
 from audio/mac_audio.py; `rt_mac_mux_replay_packed` and
 `rt_mac_materialize_packed`, the packet multiplex and the line bits, from
 video/mac.py), the NICAM-728 frame coder (`rt_nicam_encode_frames`, SiS's
-coder, from audio/nicam.py), the threaded file sink (`NativeFileSink`),
-and the hardware sinks' plumbing (rf/hardware.py): the byte FIFO with its
-prefill and EOF (`Fifo`, the reference's src/fifo.c), the sample-format
-converters (`convert_iq`, `convert_hackrf_iq8`, `convert_hackdac_bb`,
-`convert_fl2k_u8`) and the FL2K audio dither (`Fl2kDither`).
+coder, from audio/nicam.py), the threaded file sink (`NativeFileSink`,
+which borrows each block its caller writes and writes it from its own
+thread), and the hardware sinks' plumbing (rf/hardware.py): the byte
+FIFO with its prefill and EOF (`Fifo`, the reference's src/fifo.c), the
+sample-format converters (`convert_iq`, `convert_hackrf_iq8`,
+`convert_hackdac_bb`, `convert_fl2k_u8`) and the FL2K audio dither
+(`Fl2kDither`).
 
 The library is compiled with g++ (the flags of native/Makefile) from
 the port's `csrc/hacktv_rt_port.cpp`, which includes the repo's
-`native/hacktv_rt.cpp` whole and adds the file sink's counted write
-(`rt_file_sink_write_counted`), into `hacktv_tpu_torch/_build/` at first
-use, to a temporary file renamed into place so that concurrent processes
-never load a half-written library, and rebuilt when older than either
+`native/hacktv_rt.cpp` whole and adds the port's file sink
+(`rt_port_sink_*`), into `hacktv_tpu_torch/_build/` at first use, to a
+temporary file renamed into place so that concurrent processes never
+load a half-written library, and rebuilt when older than either
 source.  Nothing is written into `native/`.  A missing compiler, a failed
 build or a failed load raises: no caller falls back to another path.
 
@@ -32,12 +34,13 @@ build or a failed load raises: no caller falls back to another path.
 TSAN or ASAN one): the directory's `libhacktv_rt.so` is loaded, and
 compiled there from `csrc/hacktv_rt_port.cpp` over the directory's
 `hacktv_rt.cpp` only when missing or older than those sources, so a
-library made there from `hacktv_rt.cpp` alone lacks the counted write and
-fails to load.  A directory that holds neither file raises, naming it.
+library made there from `hacktv_rt.cpp` alone lacks the port's file sink
+and fails to load.  A directory that holds neither file raises, naming it.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import os
@@ -64,7 +67,7 @@ PORT_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                         "hacktv_rt_port.cpp")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-pthread"]
 
-SINK_FIFO_BYTES = 64 << 20     # the file sink's queue between the threads
+SINK_FIFO_BYTES = 64 << 20     # the file sink's bytes in flight between threads
 # rt_type enum (native/hacktv_rt.cpp)
 TYPE_IDS = {"uint8": 0, "int8": 1, "uint16": 2, "int16": 3, "int32": 4,
             "float": 5}
@@ -171,13 +174,17 @@ def _declare(lib) -> None:
     lib.rt_mac_materialize_packed.argtypes = [
         c.c_long, c.c_long, c.c_long, p, p, c.c_int, p, p, p, p, p, p, p,
         p, c.c_int]
-    lib.rt_file_sink_open.restype = p
-    lib.rt_file_sink_open.argtypes = [c.c_char_p, c.c_int, c.c_int,
+    lib.rt_port_sink_open.restype = p
+    lib.rt_port_sink_open.argtypes = [c.c_char_p, c.c_int, c.c_int,
                                       c.c_size_t]
-    lib.rt_file_sink_write_counted.restype = c.c_long
-    lib.rt_file_sink_write_counted.argtypes = [p, p, c.c_size_t, p]
-    lib.rt_file_sink_close.restype = c.c_long
-    lib.rt_file_sink_close.argtypes = [p]
+    lib.rt_port_sink_submit.restype = c.c_int64
+    lib.rt_port_sink_submit.argtypes = [p, p, c.c_size_t]
+    lib.rt_port_sink_done.restype = c.c_int64
+    lib.rt_port_sink_done.argtypes = [p]
+    lib.rt_port_sink_counts.restype = None
+    lib.rt_port_sink_counts.argtypes = [p, p]
+    lib.rt_port_sink_close.restype = c.c_long
+    lib.rt_port_sink_close.argtypes = [p, p]
     lib.rt_fifo_create.restype = p
     lib.rt_fifo_create.argtypes = [c.c_size_t, c.c_size_t]
     for name in ("rt_fifo_destroy", "rt_fifo_close_writer",
@@ -291,18 +298,23 @@ class FmCarrierExact:
 
 
 class NativeFileSink:
-    """Threaded file sink: the sample-format conversion and the copy into
-    its FIFO run on the calling thread, the file writes on the sink's own
-    (rt_file_sink_*)."""
+    """Threaded file sink that borrows the caller's arrays (rt_port_sink_*
+    in csrc/hacktv_rt_port.cpp): `write` queues the array to the sink's
+    writer thread and returns; that thread writes int16 complex output
+    straight from the array, and converts any other type, or real
+    output, into its own buffer first.  Writes wait while
+    SINK_FIFO_BYTES of output are in flight."""
 
-    # rt_file_sink_write_counted's counts, in its order
-    STATS = ("convert_ns", "queue_ns", "bytes_in", "fifo_peak_bytes")
+    # rt_port_sink_counts' order
+    STATS = ("convert_ns", "wait_ns", "bytes_in", "peak_bytes", "borrowed")
 
     def __init__(self, path: str, dtype: str = "int16",
                  complex_out: bool = True):
         self._lib = load()
         self._counts = np.zeros(len(self.STATS), np.int64)
-        self._h = self._lib.rt_file_sink_open(
+        self._held = collections.deque()     # (sequence, array) in flight
+        self._borrows = dtype == "int16" and complex_out
+        self._h = self._lib.rt_port_sink_open(
             path.encode(), TYPE_IDS[dtype], 1 if complex_out else 0,
             SINK_FIFO_BYTES)
         if not self._h:
@@ -310,22 +322,40 @@ class NativeFileSink:
 
     @telemetry.spanned("sink.write")
     def write(self, iq: np.ndarray) -> None:
-        """`iq`: int16 [n, 2] interleaved I/Q."""
+        """Queue `iq`, int16 [n, 2] interleaved I/Q, for the file.  The
+        sink reads `iq` until its writer thread has written it, after
+        `write` returns: the caller must not write into `iq` afterwards
+        (an array that is not int16 and contiguous is copied first, and
+        the copy is held instead).  An IO error of an earlier write
+        raises OSError here or at `close`."""
         iq = np.ascontiguousarray(iq, np.int16)
-        if self._lib.rt_file_sink_write_counted(
-                self._h, ptr(iq), iq.size // 2, ptr(self._counts)) < 0:
+        seq = self._lib.rt_port_sink_submit(self._h, ptr(iq), iq.size // 2)
+        if seq < 0:
             raise OSError("sink write failed")
+        self._held.append((seq, iq))
+        telemetry.count("sink.borrowed" if self._borrows
+                        else "sink.converted")
+        # drop the arrays the writer thread has written
+        done = self._lib.rt_port_sink_done(self._h)
+        while self._held and self._held[0][0] <= done:
+            self._held.popleft()
 
     def stats(self) -> dict:
-        """ns spent converting and writing into the FIFO, bytes handed to
-        it, and its highest level seen just after a write, over every
-        write so far."""
+        """Over every write so far: ns the writer thread spent converting
+        (0 for int16 complex output), ns writes waited for room, bytes
+        handed to the file, the most bytes in flight, and the writes
+        written straight from the caller's array."""
+        if self._h:
+            self._lib.rt_port_sink_counts(self._h, ptr(self._counts))
         return dict(zip(self.STATS, self._counts.tolist()))
 
     def close(self) -> None:
+        """Write out what is queued, join the writer thread and close the
+        file; OSError after an IO error."""
         if self._h:
-            r = self._lib.rt_file_sink_close(self._h)
+            r = self._lib.rt_port_sink_close(self._h, ptr(self._counts))
             self._h = None
+            self._held.clear()
             if r < 0:
                 raise OSError("sink close reported IO error")
 

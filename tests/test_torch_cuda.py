@@ -12,8 +12,9 @@ moving sources in 4-frame blocks and the LUT gather, checkpoints
 written on one device and resumed on the other, and the encoders sharded
 over 2 and 4 shards of the card (`devices=`), on the card against their
 CPU path (byte for byte); the tracer's events and launch counts on the
-card; the pinned copy back of the raster encoder, D2-MAC and the mux;
-the block step replayed as CUDA graphs against eager steps.
+card; the pinned copy back of the raster encoder, D2-MAC and the mux,
+and its page-locked blocks written by the file sink's own thread; the
+block step replayed as CUDA graphs against eager steps.
 They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
@@ -30,7 +31,7 @@ import pytest
 import torch
 
 import _torch_common as tc
-from hacktv_tpu_torch import Encoder, get_mode, telemetry
+from hacktv_tpu_torch import Encoder, get_mode, runtime, telemetry
 from hacktv_tpu_torch.audio import nicam_dev, synth
 from hacktv_tpu_torch.av.noise import NoiseSource
 from hacktv_tpu_torch.mux import MuxEncoder
@@ -159,7 +160,35 @@ def test_pinned_copy_back_keeps_every_block(cuda, name):
         assert a.dtype == want.dtype and a.tobytes() == want.tobytes(), b
 
 
-GRAPH_COUNTERS = ("step.eager", "step.graph_captures", "step.graph_replays",
+def test_file_sink_holds_pinned_blocks(cuda, tmp_path):
+    """Twelve one-frame pal-i-vsb blocks (`-m i --filter`, 16 MS/s, the
+    test card with noise for sound) streamed as the command line streams
+    them into the file sink, each page-locked array dropped as soon as it
+    is written: the sink writes them from its own thread after `write`
+    returns, and the file holds a fresh encoder's `encode_block` bytes."""
+    def make():
+        probe = Encoder("i", 16_000_000, device="cpu")
+        src = NoiseSource(probe.params.active_width,
+                          probe.conf.active_lines)
+        return Encoder("i", 16_000_000, vfilter=True, source=src,
+                       device=cuda)
+    nblocks = 12
+    enc, fresh = make(), make()
+    path = tmp_path / "out.s16"
+    sink = runtime.NativeFileSink(str(path), "int16", True)
+    pending = enc.encode_block_device(0)
+    for b in range(1, nblocks + 1):
+        nxt = enc.encode_block_device(b) if b < nblocks else None
+        sink.write(enc.collect_block(b - 1, pending))
+        pending = nxt
+    sink.close()
+    assert sink.stats()["borrowed"] == nblocks
+    want = b"".join(fresh.encode_block(b).tobytes() for b in range(nblocks))
+    got = path.read_bytes()
+    assert len(got) == len(want) and got == want
+
+
+GRAPH_COUNTERS = ("step.eager","step.graph_captures", "step.graph_replays",
                   "step.graph_failures", "fir_cplx.launches",
                   "secam.windows")
 
