@@ -13,14 +13,24 @@ version is `_VCState._clock16`); the device takes per-line cut columns
 and rotates a whole block of lines with one gather, and renders all VBI
 bursts with one product against the pulse-shaped symbol basis
 (services/vbidata.py).
+
+The host coder is measured (telemetry.py): `block_arrays` is the span
+`dispatch.audio.services.videocrypt` while tracing, and counts always
+`videocrypt.host_ns` (its time, two perf_counter_ns a block),
+`videocrypt.blocks`, `videocrypt.frames` (frames of PRBS and VBI state
+generated) and `videocrypt.cut_lines` (lines the block rotates).  It runs
+on the host for every block, whether the step then replays as a CUDA
+graph or not, so these keep measuring under the graphs.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from .. import runtime
+from .. import runtime, telemetry
 from . import vbidata
 
 # ---------------------------------------------------------------------------
@@ -257,6 +267,7 @@ class _VCState:
         self._frames[fr] = (self.vbi, self.vbi2, cuts)
         self._frames.pop(fr - 8, None)
         self._next_frame += 1
+        telemetry.count("videocrypt.frames")
 
     def frame(self, fr: int):
         while fr >= self._next_frame:
@@ -317,6 +328,18 @@ class Videocrypt:
                          & (cols < self.col_e))[None, :]
 
     def block_arrays(self, k0: int, nlines: int, claimed=None) -> dict:
+        """The host arrays of rows k0 .. k0 + nlines - 1 (`_arrays`),
+        timed and counted (the module's docstring)."""
+        t0 = time.perf_counter_ns()
+        with telemetry.span("dispatch.audio.services.videocrypt"):
+            out = self._arrays(k0, nlines, claimed)
+        telemetry.count("videocrypt.host_ns", time.perf_counter_ns() - t0)
+        telemetry.count("videocrypt.blocks")
+        telemetry.count("videocrypt.cut_lines",
+                        int(np.count_nonzero(out["active"])))
+        return out
+
+    def _arrays(self, k0: int, nlines: int, claimed=None) -> dict:
         """Vectorised per frame: cut-point columns and VBI byte rows
         come from array indexing per frame segment."""
         ks = k0 + np.arange(nlines, dtype=np.int64)

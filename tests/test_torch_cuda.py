@@ -14,7 +14,8 @@ over 2 and 4 shards of the card (`devices=`), on the card against their
 CPU path (byte for byte); the tracer's events and launch counts on the
 card; the pinned copy back of the raster encoder, D2-MAC and the mux,
 and its page-locked blocks written by the file sink's own thread; the
-block step replayed as CUDA graphs against eager steps.
+block step replayed as CUDA graphs against eager steps (Videocrypt I's
+among them).
 They skip without an NVIDIA card.  The file imports
 neither jax nor hacktv_tpu, so on a machine without JAX it runs alone:
 
@@ -223,18 +224,31 @@ def test_step_graphs_equal_eager_steps(cuda, mode):
     signature: blocks 0 and 1 eager, block 2 captured, the rest
     replayed; the stream FIR's launches and SECAM's windows still count
     one a block."""
+    _graphs_against_eager(cuda, mode, secam=1 if mode == "l" else 0)
+
+
+def test_step_graphs_equal_eager_videocrypt_steps(cuda):
+    """i-videocrypt-vsb as the benchmark builds it (`-m i --filter
+    --videocrypt free`, 16 MS/s, 16-frame blocks, the test card with
+    noise for sound): twelve blocks through the graphs and through an
+    eager twin, byte for byte, with the scrambler's four arrays uploaded
+    each block into the captured step; the same pattern of captures and
+    replays as pal-i-vsb's, and no capture fails."""
+    _graphs_against_eager(cuda, "i", secam=0, videocrypt="free")
+
+
+def _graphs_against_eager(cuda, mode: str, secam: int, **kw):
     def make():
         probe = Encoder(mode, 16_000_000, device="cpu")
         src = NoiseSource(probe.params.active_width,
                           probe.conf.active_lines)
         return Encoder(mode, 16_000_000, vfilter=True, frames_per_block=16,
-                       source=src, device=cuda)
+                       source=src, device=cuda, **kw)
     graphed, eager = make(), make()
     eager._graphs.limit = 0
     nblocks = 12
     got, grew = _stream_counted(graphed, nblocks)
     want, grew_eager = _stream_counted(eager, nblocks)
-    secam = 1 if mode == "l" else 0
     assert grew[:3] == [(1, 0, 0, 0, 1, secam), (1, 0, 0, 0, 1, secam),
                         (1, 1, 0, 0, 1, secam)]
     assert grew[3:] == [(0, 0, 1, 0, 1, secam)] * (nblocks - 3)

@@ -5,11 +5,17 @@ back, nested and carrying the block number; the block path's uploads
 are counted (PAL-I and D2-MAC); on the CPU a collect copies nothing (the
 raster encoder, D2-MAC and the two-channel mux); SECAM-L's chroma program, its metadata and its AM sound are
 spans of their stages, and SECAM's counters count its blocks, its time
-and its metadata builds (PAL-I leaves them); the native file sink counts
+and its metadata builds (PAL-I leaves them); Videocrypt I's host coder
+is a span under the services' and its counters count its blocks, frames,
+rotated lines and time (PAL-I leaves them), and the benchmark's reader of
+them is silent without them; the native file sink counts
 its bytes and its conversion; the spans reach an active torch.profiler's
 timeline; the raw spans kept are bounded."""
 
 from __future__ import annotations
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -278,3 +284,88 @@ def test_pal_i_leaves_the_secam_counters(runs):
         c0, c1 = r["counters"]
         for name in SECAM_COUNTERS:
             assert c1.get(name, 0) == c0.get(name, 0)
+
+
+VC_BLOCKS = 3
+VC_COUNTERS = ("videocrypt.host_ns", "videocrypt.blocks",
+               "videocrypt.frames", "videocrypt.cut_lines")
+
+
+def _run_videocrypt(on: bool) -> dict:
+    """VC_BLOCKS one-frame blocks of PAL-I with the VSB filter and free-
+    access Videocrypt I, the tracer on or off: the samples, the counters
+    after each block, and the record."""
+    telemetry.take()
+    telemetry.enable(on)
+    try:
+        enc = Encoder("i", 16_000_000, vfilter=True, device="cpu",
+                      frames_per_block=1, videocrypt="free")
+        out, counts = [], [telemetry.counters()]
+        for b in range(VC_BLOCKS):
+            out.append(enc.collect_block(b, enc.encode_block_device(b)))
+            counts.append(telemetry.counters())
+    finally:
+        telemetry.enable(False)
+    return {"out": out, "counts": counts, "rec": telemetry.take()}
+
+
+@pytest.fixture(scope="module")
+def videocrypt_runs():
+    return {"off": _run_videocrypt(False), "on": _run_videocrypt(True)}
+
+
+def test_videocrypt_tracing_leaves_the_samples_unchanged(videocrypt_runs):
+    for a, b in zip(videocrypt_runs["off"]["out"],
+                    videocrypt_runs["on"]["out"], strict=True):
+        assert np.array_equal(a, b)
+
+
+def test_videocrypt_span_nests_under_the_services(videocrypt_runs):
+    name, parent = ("dispatch.audio.services.videocrypt",
+                    "dispatch.audio.services")
+    spans = videocrypt_runs["on"]["rec"]["spans"]
+    for b in range(VC_BLOCKS):
+        (s,) = [s for s in spans if s[0] == name and s[1] == b]
+        (p,) = [p for p in spans if p[0] == parent and p[1] == b]
+        assert s[2] == parent and p[3] <= s[3] <= s[4] <= p[4]
+    assert videocrypt_runs["off"]["rec"]["spans"] == []
+
+
+def test_videocrypt_counters_count_each_block(videocrypt_runs):
+    # a block's rows run from the line before it to the line after it, so
+    # block 0 also makes frame 2 (its last row's); each later block makes
+    # the one frame after it.  573 lines a frame are rotated: the 574
+    # lines that clock the PRBS, but for line 23 (left for WSS)
+    for r in videocrypt_runs.values():
+        c = r["counts"]
+        grew = [{k: c[b + 1].get(k, 0) - c[b].get(k, 0) for k in VC_COUNTERS}
+                for b in range(VC_BLOCKS)]
+        assert [g["videocrypt.blocks"] for g in grew] == [1] * VC_BLOCKS
+        assert [g["videocrypt.frames"] for g in grew] == \
+            [2] + [1] * (VC_BLOCKS - 1)
+        assert [g["videocrypt.cut_lines"] for g in grew] == \
+            [573] * VC_BLOCKS
+        assert all(g["videocrypt.host_ns"] > 0 for g in grew)
+
+
+def test_pal_i_leaves_the_videocrypt_counters(runs):
+    for r in runs.values():
+        c0, c1 = r["counters"]
+        for name in VC_COUNTERS:
+            assert c1.get(name, 0) == c0.get(name, 0)
+
+
+def test_videocrypt_host_ms_reader():
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "benchmark", "metrics",
+        "videocrypt_host_ms.py")
+    spec = importlib.util.spec_from_file_location("videocrypt_host_ms",
+                                                  path)
+    m = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(m)
+    assert m.from_counters({"videocrypt.host_ns": 30_000_000,
+                            "videocrypt.blocks": 4}) == 7.5
+    assert m.from_counters({"uploads": 7, "secam.windows": 3}) is None
+    assert m.from_counters({"videocrypt.host_ns": 0,
+                            "videocrypt.blocks": 0}) is None
+    assert m.from_counters({"videocrypt.blocks": 3}) is None
