@@ -60,10 +60,11 @@ Phases, one line each (any failure exits non-zero before the result):
      on the card against the same call on the CPU: byte-equal required;
      the card time of each;
   5. secam: SECAM-L's chroma program (device_chroma_carrier), luma
-     band-reject and carrier add (render) and AM carrier (am_add) at the
-     64-frame block's shapes on the card against the same calls on the
-     CPU: byte-equal required; the card time of each, and the host time
-     of one block's SECAM metadata (block_meta, built once per key);
+     band-reject and carrier add (render), both as the card's kernel
+     (chroma_render) and AM carrier (am_add) at the 64-frame block's
+     shapes on the card against the same calls on the CPU: byte-equal
+     required; the card time of each, and the host time of one block's
+     SECAM metadata (block_meta, built once per key);
   6. resample: the video resampler (device_resample_block) at
      i-pixelrate's 64-frame shape (L/M = 64/59, windows within a row) and
      at PAL 8 MS/s from 16 MS/s (L/M = 1/2, windows across rows) on the
@@ -821,8 +822,10 @@ def secam_phase(Encoder) -> None:
     """SECAM-L's own layers at the 64-frame block's shapes (block 1, the
     test card, a carried z, seeded sound and video): the chroma program
     (device_chroma_carrier), the luma band-reject and carrier add
-    (render) and the AM carrier (am_add), on the card and on the CPU:
-    byte-equal required; then the card time of each (CUDA events)."""
+    (render), both through the card's kernel (chroma_render; the plain
+    pair on the CPU) and the AM carrier (am_add), on the card and on the
+    CPU: byte-equal required; then the card time of each (CUDA
+    events)."""
     from hacktv_tpu_torch.audio import synth
     from hacktv_tpu_torch.video import raster, secam
     res, ms = {}, {}
@@ -845,21 +848,26 @@ def secam_phase(Encoder) -> None:
         video = torch.as_tensor(rng.integers(-9000, 23000, (
             nl + 2, p.width)).astype(np.float32), device=d)
         rendered = secam.render(e.secam, video, add, meta)
+        kern, kz = secam.chroma_render(*chroma, video)
         am = {k: torch.as_tensor(np.ascontiguousarray(a), device=d)
               for k, a in e.audio.am_block(e.audio.am_mono, 1, nl).items()}
         am_args = (e.am_statics, video[1:nl + 1], video[:nl],
                    am["seg_val"], am["seg_col"], am["c0"], am["s0"])
         ai, aq = synth.am_add(*am_args)
-        res[d] = [t.cpu().numpy() for t in (add, z, rendered, ai, aq)]
+        res[d] = [t.cpu().numpy()
+                  for t in (add, z, rendered, kern, kz, ai, aq)]
         if d == "cuda":
             ms["device_chroma_carrier"] = cuda_ms(
                 lambda: secam.device_chroma_carrier(*chroma), 5)
             ms["render"] = cuda_ms(
                 lambda: secam.render(e.secam, video, add, meta), 5)
+            ms["chroma_render"] = cuda_ms(
+                lambda: secam.chroma_render(*chroma, video), 5)
             ms["am_add"] = cuda_ms(lambda: synth.am_add(*am_args), 5)
-        del add, z, chroma, video, rendered, am, am_args, ai, aq
+        del add, z, chroma, video, rendered, kern, kz, am, am_args, ai, aq
     diff = {name: int(np.count_nonzero(a != b)) for name, a, b in zip(
-        ("carrier", "z", "render", "am_i", "am_q"), res["cuda"], res["cpu"])}
+        ("carrier", "z", "render", "kernel", "kernel_z", "am_i", "am_q"),
+        res["cuda"], res["cpu"])}
     phase("secam", rows=res["cpu"][0].shape[0], width=res["cpu"][0].shape[1],
           card_vs_cpu_differing=json.dumps(diff).replace(" ", ""),
           **{f"{k}_ms": f"{v:.3f}" for k, v in ms.items()},

@@ -344,6 +344,8 @@ class Encoder:
             if secam_exact is None:
                 secam_exact = conf.modulation == Modulation.FM
             self.secam_device = not secam_exact
+            if self.secam_device and self.device.type == "cuda":
+                secam_mod.bind()        # built at set-up, as the FIR's
             self._secam_meta_cache: OrderedDict = OrderedDict()
             if self.secam_device:
                 self._secam_z = {0: torch.zeros((), dtype=torch.float32,
@@ -753,21 +755,23 @@ class Encoder:
                 sa = audio["secam"]
                 sm = sa["meta"] if whole else secam_mod.window_meta(
                     sa["meta"], sa["host"], r0, r1, win.b)
+                # S-Video: no luma band-reject; the carrier rides the C
+                # channel (src/video.c:3206, 3219)
+                luma = cblock is None
+                rows_in = block if luma else cblock
                 if self.secam_device:
-                    with telemetry.span("dispatch.step.secam.chroma"):
-                        add, carry["secam_z"] = \
-                            secam_mod.device_chroma_carrier(
-                                self.secam, sm, yuv[1], yuv[2],
-                                hand["secam_z"])
-                else:
-                    add = rows(sa["add"]).to(torch.float32)
-                if cblock is not None:
-                    # no luma band-reject; the carrier rides the C channel
-                    # (src/video.c:3206, 3219)
-                    cblock = cblock + add
+                    rows_out, carry["secam_z"] = secam_mod.chroma_render(
+                        self.secam, sm, yuv[1], yuv[2], hand["secam_z"],
+                        rows_in, luma)
                 else:
                     with telemetry.span("dispatch.step.secam.render"):
-                        block = secam_mod.render(self.secam, block, add, sm)
+                        rows_out = secam_mod.render(
+                            self.secam, rows_in,
+                            rows(sa["add"]).to(torch.float32), sm, luma)
+                if luma:
+                    block = rows_out
+                else:
+                    cblock = rows_out
             telemetry.count("secam.step_ns",
                             time.perf_counter_ns() - t_secam)
             telemetry.count("secam.windows")

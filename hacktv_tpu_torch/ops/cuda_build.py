@@ -90,12 +90,13 @@ def build_all(names=None) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built if needed."""
+    """The loaded library for csrc/<name>.cu, built if needed, together
+    with every other stale source (the builds run side by side)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             with telemetry.span("setup.cuda_build"):
-                build_all([name])
+                build_all()
                 lib = ctypes.CDLL(lib_path(name))
             _libs[name] = lib
         return lib

@@ -26,8 +26,9 @@ as one replay, wherever what the step reads from the host repeats:
 Counters (telemetry.py): "step.graph_replays", "step.graph_captures",
 and "step.eager" (steps run eagerly, captures included).  A replay adds
 the work counts its capture counted (`WORK_COUNTERS`: the stream FIR's
-launches, the SECAM windows), so they stay per block; host-time counts
-(SECAM's "secam.step_ns") grow only where the step's host code ran.  A
+launches, the SECAM windows and its kernel's), so they stay per block;
+host-time counts (SECAM's "secam.step_ns") grow only where the step's
+host code ran.  A
 step that cannot be captured (a wait for the card or an upload inside
 it) or keyed (a leaf of another type, a tensor on another device) runs
 eagerly from then on for that encoder, counted in
@@ -47,7 +48,8 @@ from . import telemetry
 MAX_GRAPHS = 8       # graphs an encoder keeps
 MAX_SEEN = 64        # signatures remembered as run once
 # counts of the step's work, added again at each replay
-WORK_COUNTERS = ("fir_cplx.launches", "fir_real.launches", "secam.windows")
+WORK_COUNTERS = ("fir_cplx.launches", "fir_real.launches", "secam.windows",
+                 "secam.kernel_windows")
 
 _SCALARS = (bool, int, float, str, bytes, type(None))
 

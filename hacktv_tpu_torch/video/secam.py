@@ -24,6 +24,11 @@ product is rounded on its own.  With the field-identification lines the
 carrier phase passes 120 rad, where glibc's large-argument reduction
 runs (`SecamDevice.large`).
 
+`chroma_render` is what the encoder calls: on the CPU the two plain
+functions above, on a card the hand-written kernel of
+csrc/secam_chroma.cu, which runs both for each row at once, byte for byte
+the plain version (counted in the tracer's "secam.kernel_windows").
+
 The host-exact path (`chroma_block_host`, `carrier_addin_host`) runs the
 reference's serial stages in the native runtime (runtime.py): the
 encoder's `secam_exact`, and the default of the FM-video SECAM modes,
@@ -32,6 +37,7 @@ where a 1-LSB chroma difference would integrate into the FM phase.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from dataclasses import dataclass
 
@@ -39,11 +45,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import runtime
+from .. import runtime, telemetry
+from ..audio import synth
 from ..audio.synth import _sincosf_glibc, fma32
 from ..config.standards import (SECAM_CB_FREQ, SECAM_CR_FREQ, SECAM_FM_DEV,
                                 SECAM_FM_FREQ)
-from ..ops import firdes
+from ..ops import cuda_build, firdes
 from ..ops.shapes import IRT1090, rc_window
 from . import sequence
 
@@ -306,6 +313,27 @@ def block_meta(p, k0: int, n: int, nlines: int, vframe_y: int,
 _IIR_B0, _IIR_B1, _IIR_A1 = 2.90456054, -2.80912108, -0.90456054
 _IIR_R = -_IIR_A1                      # y[n] = b0 x[n] + c1 z[n-1]
 _IIR_C1 = _IIR_B1 - _IIR_A1 * _IIR_B0  # z[n] = x[n] + r z[n-1]
+# the f32 constants of the IIR, the carrier and the bell, as both versions
+# of the device program take them
+_B0_32 = float(np.float32(_IIR_B0))
+_C1_32 = float(np.float32(_IIR_C1))
+_K_DEV = float(np.float32(SECAM_FM_DEV / INT16_MAX))
+_FM_FREQ_32 = float(np.float32(SECAM_FM_FREQ))
+_INV_F0 = float(np.float32(1.0 / 4.286e6))
+_F0_32 = float(np.float32(4.286e6))
+_K126 = float(np.float32(1.26))
+_DEN_NUM = float(np.float32(np.float32(0.115) * INT16_MAX))
+
+
+def _scan_steps(W: int) -> list:
+    """(shift, f32 factor r^shift) of each step of the IIR's doubling
+    scan over rows of width W."""
+    steps, shift, rr = [], 1, _IIR_R
+    while shift < min(W, 1024) and rr > 1e-30:
+        steps.append((shift, float(np.float32(rr))))
+        rr *= rr
+        shift *= 2
+    return steps
 
 
 def _fid_rows(st: SecamStatics, W: int) -> np.ndarray:
@@ -354,6 +382,8 @@ class SecamDevice:
     # the carrier phase can pass 120 rad (the field-ID lines): cos/sin
     # take glibc's large-argument reduction too
     large: bool = False
+    # the kernel's host constants (kernel_consts)
+    kconst: tuple = None
 
 
 def to_device(st: SecamStatics, device, consts: dict | None = None,
@@ -373,7 +403,8 @@ def to_device(st: SecamStatics, device, consts: dict | None = None,
         st=st, chroma_tq=tuple(int(v) for v in tq),
         luma_w=t(lq[::-1].astype(np.float64)).view(1, 1, -1),
         r_pow=t(dc["r_pow"]), w0_col=t(dc["w0_col"]),
-        win_col=t(dc["win_col"]), fid=t(dc["fid"]), large=large)
+        win_col=t(dc["win_col"]), fid=t(dc["fid"]), large=large,
+        kconst=kernel_consts(st, tq, lq))
 
 
 def meta_to_device(nm: dict, device) -> dict:
@@ -457,12 +488,9 @@ def device_chroma_carrier(sd: SecamDevice, meta: dict, u: torch.Tensor,
     # each step z + rr * shift(z) is one fused multiply-add, as XLA's CPU
     # compiler emits it; the shifted-in zeros leave z as it is
     z = x
-    shift, rr = 1, _IIR_R
-    while shift < min(W, 1024) and rr > 1e-30:
+    for shift, rr in _scan_steps(W):
         zs = F.pad(z[:, :W - shift], (shift, 0))
-        z = fma32(zs, float(np.float32(rr)), z)
-        rr *= rr
-        shift *= 2
+        z = fma32(zs, rr, z)
     z_end = z[:, -1]
     iir_prev = meta["iir_prev"].long()
     zp = torch.where(iir_prev >= 0, z_end[torch.clamp(iir_prev, 0, B - 1)],
@@ -471,8 +499,7 @@ def device_chroma_carrier(sd: SecamDevice, meta: dict, u: torch.Tensor,
     zc = fma32(sd.r_pow[None, :], zp[:, None], z)
     z_nm1 = torch.cat([zp[:, None], zc[:, :-1]], dim=1)
     # y = b0*x + c1*z[n-1]: the first product fused, the second rounded
-    y = fma32(x, float(np.float32(_IIR_B0)),
-              z_nm1 * float(np.float32(_IIR_C1)))
+    y = fma32(x, _B0_32, z_nm1 * _C1_32)
     y = torch.clamp(y, -32768.0, 32767.0)
     y = torch.where(y >= 0, torch.floor(y + 0.5), -torch.floor(0.5 - y))
     dmin = torch.where(dr, st.dmin[1], st.dmin[0]).to(f32)[:, None]
@@ -504,14 +531,11 @@ def device_chroma_carrier(sd: SecamDevice, meta: dict, u: torch.Tensor,
     # constant over a tensor is written as a division of two tensors:
     # torch computes `float / tensor` as a reciprocal times the constant,
     # which rounds twice
-    const = lambda a: torch.full_like(c, float(np.float32(a)))
-    k_dev = float(np.float32(SECAM_FM_DEV / INT16_MAX))
-    f = fma32(c, k_dev, const(SECAM_FM_FREQ))
-    ff = fma32(f, float(np.float32(1.0 / 4.286e6)),
-               -torch.div(const(4.286e6), f))
-    rq = ff * float(np.float32(1.26))
-    den = torch.div(const(np.float32(0.115) * INT16_MAX),
-                    fma32(rq, rq, torch.ones_like(rq)))
+    const = lambda a: torch.full_like(c, a)
+    f = fma32(c, _K_DEV, const(_FM_FREQ_32))
+    ff = fma32(f, _INV_F0, -torch.div(const(_F0_32), f))
+    rq = ff * _K126
+    den = torch.div(const(_DEN_NUM), fma32(rq, rq, torch.ones_like(rq)))
     ff16 = ff * 16.0
     gi_f = fma32(ff16, rq, torch.ones_like(rq)) * den
     gq_f = (ff16 - rq) * den
@@ -682,9 +706,12 @@ def _line_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def render(sd: SecamDevice, out: torch.Tensor, carrier_add: torch.Tensor,
-           meta: dict) -> torch.Tensor:
+           meta: dict, luma: bool = True) -> torch.Tensor:
     """SECAM line processing: the luma band-reject over the active
-    segment, plus the chroma carrier."""
+    segment (where `luma`; not on S-Video's C channel), plus the chroma
+    carrier."""
+    if not luma:
+        return out + carrier_add
     st = sd.st
     B, W = out.shape
     cols = torch.arange(W, device=out.device)[None, :]
@@ -697,3 +724,119 @@ def render(sd: SecamDevice, out: torch.Tensor, carrier_add: torch.Tensor,
     luma_f = _line_conv(sd.luma_w, luma_masked)
     out = torch.where(seg & act, luma_f, out)
     return out + carrier_add
+
+
+# ---- the chroma program and render as one kernel (csrc/secam_chroma.cu) --
+# the kernel's constants, in the order of its FConst and IConst enums
+_N_STEPS = 16           # kMaxSteps
+_I_H, _I_FW = 1, 2      # set at each launch from the planes' shape
+_N_FC, _N_IC, _N_PTRS = 44, 116, 20
+_kfn = None             # secam_chroma_launch, bound at the first call
+
+
+def kernel_consts(st: SecamStatics, chroma_tq, luma_q) -> tuple:
+    """(f64 [_N_FC], int64 [_N_IC]) host arrays of the kernel's constants:
+    the f32 constants exactly as the plain program rounds them, the scan's
+    steps, the integer taps in accumulation order (reversed) and glibc's
+    tables."""
+    W = st.width
+    steps = _scan_steps(W)
+    pad = [0.0] * (_N_STEPS - len(steps))
+    fc = np.array([
+        st.u_black, st.v_black, st.dmin[0], st.dmin[1], st.dmax[0],
+        st.dmax[1], _B0_32, _C1_32, float(np.float32(st.kd)),
+        float(np.float32(st.level_int / 32768.0)), _K_DEV, _FM_FREQ_32,
+        _INV_F0, _F0_32, _K126, _DEN_NUM, synth._SC_HPI_INV,
+        synth._SC_HPI_HI, synth._SC_HPI_LO, synth._SC_PI63, *synth._SC_C,
+        *synth._SC_S, *(rr for _, rr in steps), *pad], np.float64)
+    ic = np.array([
+        W, 0, 0, st.col0, st.active_left, st.active_left + st.active_width,
+        st.half_width, st.burst_left, min(st.burst_left + st.burst_len, W),
+        len(steps), *(sh for sh, _ in steps), *[0] * len(pad),
+        *chroma_tq[::-1], *np.asarray(luma_q, np.int64)[::-1],
+        *synth._INV_PIO4], np.int64)
+    assert len(fc) == _N_FC and len(ic) == _N_IC
+    return fc, ic
+
+
+def bind():
+    """The kernel's launch function, built and bound at the first call
+    (an encoder on a card calls it at set-up)."""
+    global _kfn
+    if _kfn is None:
+        fn = cuda_build.load("secam_chroma").secam_chroma_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kfn = fn
+    return _kfn
+
+
+# the kernel's pointers (its Ptr enum): (where, key, dtype)
+_F32, _I32 = torch.float32, torch.int32
+_KERNEL_META = (("dr", _F32), ("active", _F32), ("valid", _F32),
+                ("half_only", _F32), ("vy", _I32), ("vy_prev", _I32),
+                ("prev_has", _F32), ("phase_pos", _F32),
+                ("field_id", torch.bool), ("iir_prev", _I32))
+
+
+def _chroma_kernel(sd: SecamDevice, meta: dict, u, v, z_prev, block,
+                   luma: bool):
+    st = sd.st
+    B, W = block.shape
+    if W != st.width or u.shape != v.shape or u.dim() != 2:
+        raise ValueError(f"secam kernel: rows of {W} samples (needs "
+                         f"{st.width}) or planes {tuple(u.shape)} and "
+                         f"{tuple(v.shape)}")
+    ts = [u.contiguous(), v.contiguous(), sd.fid, sd.r_pow, sd.w0_col,
+          sd.win_col]
+    want = [_F32] * 6
+    for k, dt in _KERNEL_META:
+        if meta[k].shape != (B,):
+            raise ValueError(f"secam kernel: meta[{k!r}] has shape "
+                             f"{tuple(meta[k].shape)}, not ({B},)")
+        ts.append(meta[k].contiguous())
+        want.append(dt)
+    out = torch.empty_like(block, memory_format=torch.contiguous_format)
+    z_end = torch.empty(B, dtype=_F32, device=block.device)
+    ts += [z_prev, block.contiguous(), out, z_end]
+    want += [_F32] * 4
+    for i, (t, dt) in enumerate(zip(ts, want, strict=True)):
+        if t.dtype != dt or t.device != block.device:
+            raise ValueError(f"secam kernel: pointer {i} is {t.dtype} on "
+                             f"{t.device}, needs {dt} on {block.device}")
+    fc, ic = sd.kconst
+    ic = ic.copy()
+    ic[_I_H], ic[_I_FW] = u.shape
+    ptrs = (ctypes.c_void_p * _N_PTRS)(*(t.data_ptr() for t in ts))
+    fn = bind()
+    with torch.cuda.device(block.device):
+        stream = torch.cuda.current_stream(block.device).cuda_stream
+        err = fn(ptrs, _N_PTRS, fc.ctypes.data, _N_FC, ic.ctypes.data,
+                 _N_IC, B, int(luma), stream)
+    if err:
+        raise RuntimeError(f"secam kernel launch failed: CUDA error {err}")
+    snap = meta["snap_row"]
+    return out, (z_end[snap] if snap >= 0 else z_prev)
+
+
+def chroma_render(sd: SecamDevice, meta: dict, u: torch.Tensor,
+                  v: torch.Tensor, z_prev: torch.Tensor, block: torch.Tensor,
+                  luma: bool = True):
+    """The device chroma program over one window's rows, added to `block`
+    [B, W] as `render` adds it.  Returns (the rows, the next z).  On
+    the CPU the plain version (device_chroma_carrier, then render); on a
+    card the kernel of csrc/secam_chroma.cu, byte for byte the same,
+    counted in "secam.kernel_windows"; any other device raises."""
+    if block.device.type == "cpu":
+        with telemetry.span("dispatch.step.secam.chroma"):
+            add, z = device_chroma_carrier(sd, meta, u, v, z_prev)
+        with telemetry.span("dispatch.step.secam.render"):
+            return render(sd, block, add, meta, luma), z
+    if block.device.type != "cuda":
+        raise ValueError(f"secam kernel: unsupported device {block.device}")
+    with telemetry.span("dispatch.step.secam.chroma"):
+        out = _chroma_kernel(sd, meta, u, v, z_prev, block, luma)
+    telemetry.count("secam.kernel_windows")
+    return out

@@ -191,7 +191,7 @@ def test_file_sink_holds_pinned_blocks(cuda, tmp_path):
 
 GRAPH_COUNTERS = ("step.eager","step.graph_captures", "step.graph_replays",
                   "step.graph_failures", "fir_cplx.launches",
-                  "secam.windows")
+                  "secam.windows", "secam.kernel_windows")
 
 
 def _stream_counted(enc, nblocks: int):
@@ -222,8 +222,8 @@ def test_step_graphs_equal_eager_steps(cuda, mode):
     metadata key twice and the NICAM, FM and SECAM carries chained
     through the replays.  The graphs engage at the second sight of a
     signature: blocks 0 and 1 eager, block 2 captured, the rest
-    replayed; the stream FIR's launches and SECAM's windows still count
-    one a block."""
+    replayed; the stream FIR's launches, SECAM's windows and its
+    kernel's still count one a block."""
     _graphs_against_eager(cuda, mode, secam=1 if mode == "l" else 0)
 
 
@@ -249,10 +249,11 @@ def _graphs_against_eager(cuda, mode: str, secam: int, **kw):
     nblocks = 12
     got, grew = _stream_counted(graphed, nblocks)
     want, grew_eager = _stream_counted(eager, nblocks)
-    assert grew[:3] == [(1, 0, 0, 0, 1, secam), (1, 0, 0, 0, 1, secam),
-                        (1, 1, 0, 0, 1, secam)]
-    assert grew[3:] == [(0, 0, 1, 0, 1, secam)] * (nblocks - 3)
-    assert grew_eager == [(1, 0, 0, 0, 1, secam)] * nblocks
+    assert grew[:3] == [(1, 0, 0, 0, 1, secam, secam),
+                        (1, 0, 0, 0, 1, secam, secam),
+                        (1, 1, 0, 0, 1, secam, secam)]
+    assert grew[3:] == [(0, 0, 1, 0, 1, secam, secam)] * (nblocks - 3)
+    assert grew_eager == [(1, 0, 0, 0, 1, secam, secam)] * nblocks
     for b, (a, w) in enumerate(zip(got, want, strict=True)):
         assert a.tobytes() == w.tobytes(), \
             f"block {b}: {np.count_nonzero(a != w)} of {a.size} differ"
@@ -375,27 +376,92 @@ def test_encoder_card_matches_cpu(cuda, mode, rate):
         assert ndiff == 0, msg
 
 
-@pytest.mark.parametrize("fpb", [1, 64])
-def test_secam_chroma_card_matches_cpu(cuda, fpb):
-    """device_chroma_carrier of SECAM-L's block 1 (the test card, a
-    carried z) on the card and on the CPU: the carrier add-in and the
-    next z byte-equal."""
+def _secam_rows(cuda, mode, fpb: int, luma: bool = True, window=None,
+                **kw) -> tuple:
+    """chroma_render over block 1's rows (the test card, a carried z of
+    -1234.5) of `mode` with `fpb`-frame blocks, on a seeded block of int16
+    samples (zeros without `luma`), on the card and on the CPU; `window`
+    = (r0, r1, t): that shard's window of the block (window_meta).
+    Returns {device: (rows, z)} and the kernel windows the card counted."""
     out = {}
+    k0 = telemetry.counters().get("secam.kernel_windows", 0)
     for d in ("cpu", cuda):
-        e = Encoder("l", 16_000_000, frames_per_block=fpb, device=d)
+        e = Encoder(mode, 16_000_000, frames_per_block=fpb, device=d, **kw)
         p = e.params
         nl = fpb * p.lines
         nm = secam.block_meta(p, nl - 1, nl + 2, nl, e.vframe_y,
                               e.source.height)
+        md = secam.meta_to_device(nm, d)
+        if window is not None:
+            md = secam.window_meta(md, nm, *window)
+        B = md["dr"].shape[0]
+        rng = np.random.default_rng(29 + fpb)
+        blk = (np.clip(np.round(rng.standard_normal((B, p.width)) * 9000),
+                       -32768, 32767) if luma else np.zeros((B, p.width)))
         _, u, v = raster.rgb_to_yuv_host(p, e.source.read_video(0), True)
-        add, z = secam.device_chroma_carrier(
-            e.secam, secam.meta_to_device(nm, d),
-            torch.as_tensor(u, device=d), torch.as_tensor(v, device=d),
-            torch.tensor(-1234.5, device=d))
-        out[d] = (add.cpu().numpy(), z.cpu().numpy())
-    for name, a, b in zip(("carrier", "z"), out[cuda], out["cpu"]):
+        rows, z = secam.chroma_render(
+            e.secam, md, torch.as_tensor(u, device=d),
+            torch.as_tensor(v, device=d), torch.tensor(-1234.5, device=d),
+            torch.as_tensor(blk.astype(np.float32), device=d), luma=luma)
+        out[d] = (rows.cpu().numpy(), z.cpu().numpy())
+    torch.cuda.synchronize()
+    return out, telemetry.counters().get("secam.kernel_windows", 0) - k0
+
+
+def _assert_rows_equal(out: dict, cuda) -> None:
+    for name, a, b in zip(("rows", "z"), out[cuda], out["cpu"]):
         assert a.tobytes() == b.tobytes(), \
             f"{name}: {np.count_nonzero(a != b)} of {a.size} differ"
+
+
+@pytest.mark.parametrize("fpb", [1, 64])
+def test_secam_chroma_card_matches_cpu(cuda, fpb):
+    """SECAM-L's chroma program and render (chroma_render) over block 1's
+    rows on the card, through the kernel, and on the CPU, the plain
+    program: the rendered rows and the next z byte-equal; and the
+    carrier alone (a block of zeros, no band-reject) too."""
+    for luma in (True, False):
+        out, kernels = _secam_rows(cuda, "l", fpb, luma=luma)
+        assert kernels == 1
+        _assert_rows_equal(out, cuda)
+
+
+def test_secam_chroma_card_field_id(cuda):
+    """SECAM-L with the field-identification lines (their full-span
+    sawtooth takes the carrier phase past 120 rad, where glibc's
+    reduce_large runs): the kernel byte-equal to the plain program."""
+    seen = []
+
+    def spy(x, large=False):
+        seen.append(float(x.abs().max()) if x.device.type == "cpu" else 0)
+        return synth._sincosf_glibc(x, large=large)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(secam, "_sincosf_glibc", spy)
+    try:
+        out, kernels = _secam_rows(
+            cuda, replace(get_mode("l"), secam_field_id=True), 1)
+    finally:
+        mp.undo()
+    assert kernels == 1 and max(seen) > synth.SINCOSF_MAX
+    _assert_rows_equal(out, cuda)
+
+
+def test_secam_chroma_card_window(cuda):
+    """A shard's window of a 2-frame block (window_meta, rows from 300 on)
+    whose IIR chain starts from the carried z and whose snapshot row lies
+    before it (snap_row -1): the kernel byte-equal to the plain program."""
+    out, kernels = _secam_rows(cuda, "l", 2, window=(300, 1252, 300))
+    assert kernels == 1
+    _assert_rows_equal(out, cuda)
+
+
+def test_secam_chroma_card_s_video(cuda):
+    """SECAM with S-Video: the carrier added to the C channel's rows, no
+    band-reject, through the kernel, byte-equal to the plain program."""
+    out, kernels = _secam_rows(cuda, replace(get_mode("secam"), s_video=True),
+                               1, luma=False)
+    assert kernels == 1
+    _assert_rows_equal(out, cuda)
 
 
 def test_am_and_a2_pilot_card_match_cpu(cuda):

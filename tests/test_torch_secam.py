@@ -2,7 +2,9 @@
 
 The host statics, the device program's constants and the per-line
 metadata (with the IIR chain the JAX encoder builds) equal the JAX
-package's; the chroma program equals the JAX one; and whole SECAM
+package's; the chroma program equals the JAX one; `chroma_render` on
+the CPU is that program and never reaches the card's kernel, whose host
+constants are the program's; and whole SECAM
 encoders are byte-identical to `hacktv_tpu.Encoder`, whose compiled step
 is the oracle for every fused multiply-add, over sequential one-frame
 blocks 0-2 (which cross the IIR carry twice).  SECAM-L with NICAM off,
@@ -26,8 +28,11 @@ from hacktv_tpu.video import params as jparams
 from hacktv_tpu.video import raster as jraster
 from hacktv_tpu.video import secam as jsecam
 from hacktv_tpu_torch import Encoder as TEncoder
+from hacktv_tpu_torch import telemetry
+from hacktv_tpu_torch.audio import synth
 from hacktv_tpu_torch.av.noise import NoiseSource
 from hacktv_tpu_torch.config import get_mode as tget_mode
+from hacktv_tpu_torch.ops import cuda_build
 from hacktv_tpu_torch.video import params as tparams
 from hacktv_tpu_torch.video import secam as tsecam
 
@@ -106,6 +111,69 @@ def test_chroma_program_equal(block):
     assert to.numpy().tobytes() == jo.tobytes(), \
         f"{np.count_nonzero(to.numpy() != jo)} of {jo.size} samples differ"
     assert np.float32(tz) == np.float32(jz)
+
+
+@pytest.mark.parametrize("luma", [True, False])
+def test_chroma_render_on_the_cpu_is_the_plain_program(monkeypatch, luma):
+    """chroma_render on CPU tensors is the plain program byte for byte
+    (device_chroma_carrier, then render, or the bare sum for S-Video's C
+    channel), and never builds or counts the card's kernel."""
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path reached the CUDA build")
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    monkeypatch.setattr(cuda_build, "build_all", refuse)
+    t = TEncoder("l", RATE, device="cpu")
+    p = t.params
+    nm = tsecam.block_meta(p, NLINES - 1, NLINES + 2, NLINES, t.vframe_y,
+                           t.source.height)
+    md = tsecam.meta_to_device(nm, "cpu")
+    _, u, v = jraster.rgb_to_yuv_host(
+        jparams.VideoParams.create(jget_mode("l"), RATE, 0),
+        t.source.read_video(0), True)
+    u, v = torch.as_tensor(u), torch.as_tensor(v)
+    rng = np.random.default_rng(29)
+    blk = torch.as_tensor(np.round(rng.standard_normal((NLINES + 2, W))
+                                   * 9000).astype(np.float32))
+    z0 = torch.tensor(-1234.5)
+    k0 = telemetry.counters().get("secam.kernel_windows", 0)
+    out, z = tsecam.chroma_render(t.secam, md, u, v, z0, blk, luma=luma)
+    assert telemetry.counters().get("secam.kernel_windows", 0) == k0
+    add, zw = tsecam.device_chroma_carrier(t.secam, md, u, v, z0)
+    want = tsecam.render(t.secam, blk, add, md) if luma else blk + add
+    assert out.numpy().tobytes() == want.numpy().tobytes()
+    assert z.numpy().tobytes() == zw.numpy().tobytes()
+
+
+@pytest.mark.parametrize("mode,rate", [("l", RATE), ("secam", 20_250_000),
+                                       ("d", 13_500_000)])
+def test_kernel_consts_are_the_plain_programs(mode, rate):
+    """The card kernel's host constants (kernel_consts, in the order of
+    csrc/secam_chroma.cu's enums) hold what the plain program computes
+    with: the row geometry, the doubling scan's shifts and f32 factors,
+    the integer taps in accumulation order (the luma's as render's conv1d
+    weights), the f32 constants and glibc's tables."""
+    t = TEncoder(mode, rate, device="cpu")
+    sd, st = t.secam, t.secam.st
+    fc, ic = sd.kconst
+    assert fc.shape == (tsecam._N_FC,) and ic.shape == (tsecam._N_IC,)
+    Wd = st.width
+    steps = tsecam._scan_steps(Wd)
+    assert 0 < len(steps) <= tsecam._N_STEPS
+    assert list(ic[:11]) == [
+        Wd, 0, 0, st.col0, st.active_left,
+        st.active_left + st.active_width, st.half_width, st.burst_left,
+        min(st.burst_left + st.burst_len, Wd), len(steps), 1]
+    assert list(ic[10:10 + len(steps)]) == [sh for sh, _ in steps]
+    assert list(fc[28:28 + len(steps)]) == [rr for _, rr in steps]
+    assert list(ic[26:41]) == list(sd.chroma_tq[::-1])
+    assert np.array_equal(ic[41:92], sd.luma_w.reshape(-1).numpy())
+    assert list(ic[92:]) == list(synth._INV_PIO4)
+    assert list(fc[:6]) == [st.u_black, st.v_black, st.dmin[0],
+                            st.dmin[1], st.dmax[0], st.dmax[1]]
+    assert all(float(np.float32(x)) == x for x in fc[:16])
+    assert list(fc[16:28]) == [synth._SC_HPI_INV, synth._SC_HPI_HI,
+                               synth._SC_HPI_LO, synth._SC_PI63,
+                               *synth._SC_C, *synth._SC_S]
 
 
 # -- whole encoders ------------------------------------------------------------

@@ -171,6 +171,21 @@ def test_first_eager_second_captured_then_replayed(eager_graph):
     assert _delta(c0) == (1, 0, 0, 0, 1)
 
 
+def test_replays_count_the_secam_kernel_windows(eager_graph):
+    """A step that ran the SECAM kernel once: each replay adds its window
+    to "secam.kernel_windows" (a WORK_COUNTER), as the eager steps do."""
+    def step(x):
+        telemetry.count("secam.kernel_windows")
+        return x + 1
+    assert "secam.kernel_windows" in step_graph.WORK_COUNTERS
+    sg = step_graph.StepGraphs("cpu")
+    c0 = telemetry.counters()
+    for _ in range(5):
+        sg(step, torch.ones(3))
+    assert _delta(c0, ("step.eager", "step.graph_replays",
+                       "secam.kernel_windows")) == (2, 3, 5)
+
+
 def test_graphs_are_bounded_and_limit_zero_stays_eager(eager_graph):
     sg = step_graph.StepGraphs("cpu", limit=2)
     for scale in (1, 2, 3):
@@ -217,13 +232,14 @@ def test_encoder_through_graphs_equals_eager(eager_graph, mode):
     one-frame blocks streamed as the command line streams them: through
     the stand-in graphs (keys of period 2 from block 1: blocks 3 and 4
     capture, 5 replays) byte for byte the plain encoder's, the SECAM
-    windows counted once a block."""
+    windows counted once a block and none by the card's kernel."""
     plain = Encoder(mode, 16_000_000, vfilter=True, device="cpu")
     graphed = Encoder(mode, 16_000_000, vfilter=True, device="cpu")
     assert plain._graphs is None and graphed._graphs is None
     graphed._graphs = step_graph.StepGraphs("cpu")
     c0 = telemetry.counters()
     w0 = c0.get("secam.windows", 0)
+    k0 = c0.get("secam.kernel_windows", 0)
     pending, got = graphed.encode_block_device(0), []
     for b in range(1, 7):
         nxt = graphed.encode_block_device(b) if b < 6 else None
@@ -232,6 +248,8 @@ def test_encoder_through_graphs_equals_eager(eager_graph, mode):
     assert _delta(c0)[:4] == (5, 2, 1, 0)
     if mode == "l":
         assert telemetry.counters()["secam.windows"] - w0 == 6
+    # the CPU runs the plain program, never the card's kernel
+    assert telemetry.counters().get("secam.kernel_windows", 0) == k0
     for b, a in enumerate(got):
         assert a.tobytes() == plain.encode_block(b).tobytes(), b
 
