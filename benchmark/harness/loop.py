@@ -45,34 +45,20 @@ class Spans:
 
 
 class BlockLoop:
-    """One encoder streaming into one sink.  `probes` name the serial
-    host recurrences of the encoder the check follows: {name: (encoder
-    attribute, "dispatch" | "collect")}; their (state, sample) is kept
-    before and after the call that advances them, by block."""
+    """One encoder streaming into one sink.  `chain` (check.Chain) reads
+    the serial host states the check follows, before and after the call
+    that advances each, by block."""
 
-    def __init__(self, enc, sink, spans: Spans, probes: dict):
+    def __init__(self, enc, sink, spans: Spans, chain):
         self.enc, self.sink, self.spans = enc, sink, spans
         self.encode = spans.wrap("enqueue", enc.encode_block_device)
         self.collect = spans.wrap("collect", enc.collect_block)
         self.write = spans.wrap("sink_write", sink.write)
-        self.probes = probes
-        self.states: dict = {}          # (name, block) -> (start, end)
+        self.chain = chain
         self.next_block = 0
         self.pending = None
         self.pairs = 0                  # sample pairs handed to the sink
         self.sync_warnings = None       # a list while syncs are counted
-
-    def _state(self, stage: str) -> dict:
-        out = {}
-        for name, (attr, st) in self.probes.items():
-            if st == stage:
-                fx = getattr(self.enc, attr)
-                out[name] = (tuple(int(v) for v in fx._state), int(fx.n))
-        return out
-
-    def _keep(self, stage: str, b: int, before: dict) -> None:
-        for name, end in self._state(stage).items():
-            self.states[(name, b)] = (before[name], end)
 
     def _dispatch(self, b: int):
         if self.sync_warnings is None:
@@ -92,18 +78,18 @@ class BlockLoop:
         """Queue the next block, then copy back and write the one before
         it.  Returns (block written, its samples, the host clock when the
         write returned), or None on the first step."""
-        b = self.next_block
-        before = self._state("dispatch")
+        b, enc, chain = self.next_block, self.enc, self.chain
+        before = chain.read(enc, "dispatch")
         dev = self._dispatch(b)
-        self._keep("dispatch", b, before)
+        chain.link(enc, "dispatch", b, before)
         self.next_block += 1
         done, self.pending = self.pending, (b, dev)
         if done is None:
             return None
         b0, dev0 = done
-        before = self._state("collect")
+        before = chain.read(enc, "collect")
         out = self.collect(b0, dev0)
-        self._keep("collect", b0, before)
+        chain.link(enc, "collect", b0, before)
         if out.ndim == 1:
             out = np.stack([out, np.zeros_like(out)], axis=-1)
         self.write(out)

@@ -7,7 +7,11 @@ returns an encoder with `encode_block(b, start) -> (samples, end
 states)` and `initial_states()` (what harness/check.py's `compare`
 reads), made from the configuration's file as it stands and the traffic
 mix's source for `seed`; `fir_dtype` computes the stream FIR in a lower
-precision (the control).  This one runs the configuration's `mode`,
+precision (the control).  `start` holds, by name, every serial host
+state that the check follows for the configuration (run.py's `follows`:
+those its file names under `check.follows`, or else the encoder's FM
+carriers), each as (state, n) read from the program at block b's start;
+the end states and `initial_states()` give the same names.  This one runs the configuration's `mode`,
 `sample_rate` and `vfilter`, and no CLI switch: a configuration with
 `switches` needs a reference of its own.
 """

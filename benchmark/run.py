@@ -33,9 +33,9 @@ PROFILE_BLOCKS, PROFILE_SECONDS = 6, 2.0
 SYNC_BLOCKS = 4
 # the plain reference of a configuration that names none
 DEFAULT_REFERENCE = "codec.make"
-# the serial host recurrences the check follows, by the encoder's
-# attribute that holds each and the call that advances it; a cell follows
-# those its encoder has
+# the follows of an encoder whose configuration names none under
+# `check.follows`: its host-exact FM carriers, by the encoder's attribute
+# that holds each and the call that advances it, those it has
 PROBES = {"fm_sound": ("fm_exact", "dispatch"),
           "fm_video": ("fm_video_exact", "collect")}
 
@@ -84,6 +84,18 @@ def build(config: dict, mix: dict, seed: int, device):
     return enc, src
 
 
+def follows(config: dict, enc) -> dict:
+    """The serial host states the check follows for encoder `enc`: {name:
+    (encoder attribute, "dispatch" | "collect")}, those the
+    configuration's `check.follows` names (check.Chain refuses one the
+    encoder lacks), or else PROBES' FM carriers that it has."""
+    named = config["check"].get("follows")
+    if named is not None:
+        return dict(named)
+    return {n: p for n, p in PROBES.items()
+            if getattr(enc, p[0], None) is not None}
+
+
 def reference_module(config: dict):
     """The module under reference/ that configuration `config` names
     under `reference` (reference/codec/make.py where it names none)."""
@@ -118,15 +130,15 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     enc, src = build(config, mix, seed, dev)
+    chain = check.Chain(follows(config, enc), enc)
     wchar0 = check.bytes_written()
     sink = runtime.NativeFileSink(os.devnull, "int16", enc.complex_out)
     spans = loop.Spans()
-    probes = {n: p for n, p in PROBES.items()
-              if getattr(enc, p[0], None) is not None}
-    for attr, _ in probes.values():
-        fx = getattr(enc, attr)
-        fx.process = spans.wrap("fm_carrier", fx.process)
-    bl = loop.BlockLoop(enc, sink, spans, probes)
+    for attr, _ in PROBES.values():
+        fx = getattr(enc, attr, None)
+        if fx is not None:
+            fx.process = spans.wrap("fm_carrier", fx.process)
+    bl = loop.BlockLoop(enc, sink, spans, chain)
     res = check.Reservoir(config["check"]["blocks"], seed)
 
     # set-up: every shape the window uses, both block parities
@@ -146,6 +158,7 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool,
         returns.append(t)
         samples += len(out)
         res.offer(b, out)
+        chain.keep(res.kept, b)
         if t - t0 >= seconds:
             break
     blocks = len(returns)
@@ -175,7 +188,6 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool,
     short = check.bytes_short(handed, wchar0, check.bytes_written())
     kept = check.through_sink(res.kept, runtime.NativeFileSink,
                               enc.complex_out)
-    states = bl.states
     del bl, enc, src, sink, res
     if cuda:
         torch.cuda.empty_cache()
@@ -184,7 +196,7 @@ def run_cell(c: dict, seed: int, seconds: float, trace: bool,
     ref = reference(config, mix, seed, dev)
     ctl = (reference(config, mix, seed, dev, fir_dtype=control_dtype)
            if control_dtype is not None else None)
-    numbers = check.compare(kept, states, ref, probes, control=ctl,
+    numbers = check.compare(kept, chain, ref, control=ctl,
                             sink_short=short)
     limits = config["check"]["limits"]
     correct = all(numbers[k] <= limits[k] for k in numbers)

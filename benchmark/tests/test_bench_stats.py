@@ -2,6 +2,7 @@
 percentile over all blocks, the stream FIR's work, the readers."""
 
 import re
+import types
 
 import pytest
 
@@ -96,13 +97,23 @@ def test_continuity_gap_counts_broken_chains():
     from harness import check
     init = {"v": ((1, 2, 3), 0)}
     a, b, c = ((4, 5, 6), 10), ((7, 8, 9), 20), ((1, 1, 1), 30)
-    chain = {("v", 0): (init["v"], a), ("v", 1): (a, b), ("v", 2): (b, c)}
-    assert check.continuity_gap(chain, init) == 0
+
+    def gap(reads):
+        # check.Chain over reads (block, start, end) of one follow "v"
+        enc = types.SimpleNamespace(x=types.SimpleNamespace(
+            _state=init["v"][0], n=init["v"][1]))
+        chain = check.Chain({"v": ("x", "collect")}, enc)
+        for blk, start, end in reads:
+            enc.x._state, enc.x.n = end
+            chain.link(enc, "collect", blk, {"v": start})
+        return chain.gap + chain.initial_gap(init)
+    chain = [(0, init["v"], a), (1, a, b), (2, b, c)]
+    assert gap(chain) == 0
     # block 1 started afresh: three phase components and the sample differ
-    reset = {**chain, ("v", 1): (init["v"], b)}
-    assert check.continuity_gap(reset, init) == 4
-    assert check.continuity_gap({("v", 0): (a, b)}, init) == 4
-    assert check.continuity_gap({("v", 2): (b, c)}, init) == 4
+    reset = [chain[0], (1, init["v"], b), chain[2]]
+    assert gap(reset) == 4
+    assert gap([(0, a, b)]) == 4
+    assert gap([(2, b, c)]) == 4
 
 
 def test_bytes_short():
@@ -121,6 +132,7 @@ def test_a_short_sink_fails_max_abs_diff():
     class Reference:
         def initial_states(self):
             return {}
-    assert check.compare({}, {}, Reference(), {})["max_abs_diff"] == 0
-    assert check.compare({}, {}, Reference(), {},
+    chain = check.Chain({}, None)
+    assert check.compare({}, chain, Reference()) == {"max_abs_diff": 0}
+    assert check.compare({}, chain, Reference(),
                          sink_short=4)["max_abs_diff"] == 65536
